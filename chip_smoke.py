@@ -1,20 +1,27 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card.
+"""Drive the PyTorch port's serving path and training step on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
 Phases (one line each; any failure exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions.
-2. build: every kernel of ``fpsg_torch/csrc`` built by ``nvcc`` (sm_90a).
-3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving shapes (Q = 8 images of 224x224; decoder C = Nn = 4,
-   R = 8 x 128 rows), f32 and bf16 — the max-pool bitwise (values and
-   first-match codes, with forced ties), the decoder layers within
-   ``F32_TOL`` / ``BF16_TOL`` of the output scale. Times by CUDA events
+2. build: every kernel of ``fpsg_torch/csrc`` built by ``nvcc`` (sm_90a),
+   one process per source, all started together.
+3. kernels: each kernel against its plain PyTorch version on the card,
+   f32 and bf16 where the kernel takes both. At the serving shapes (Q = 8
+   images of 224x224; decoder C = Nn = 4, R = 8 x 128 rows): the max-pool
+   bitwise (values and first-match codes, with forced ties), the decoder
+   layers within ``F32_TOL`` / ``BF16_TOL`` of the output scale. At the
+   training shapes (33 images; Chamfer at B = 1 and B = 32 clouds of 2048
+   points): the max-pool and its backward bitwise, the Chamfer nearest
+   neighbour bitwise (indices and distances, with duplicated points forcing
+   ties), the segment sum within ``SEGSUM_TOL``. Times by CUDA events
    (median of repeats) for the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call (``F.max_pool2d``;
-   ``torch.bmm`` on the already activated input for the mid layer).
+   PyTorch call computes the same function, that call (``F.max_pool2d``,
+   ``max_pool2d_with_indices_backward``, ``index_add_``; ``torch.bmm`` on
+   the already activated input for the mid layer).
 4. serve: ``Generator`` at the flagship width (VGG16-bn at 224x224,
    PointNet over 32 support clouds of 2048 points, 4x4 decoder, 2048
    points, random weights from a seed, f32): ``prototype`` once, then 5
@@ -28,11 +35,26 @@ Phases (one line each; any failure exits non-zero):
    on the CPU (the plain versions); max abs difference within
    ``PATH_TOL``. Then ``stream`` against per-call on the card, and one
    bf16 request (finite, in range).
-7. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+7. train: the episodic training step at the flagship width
+   (``fpsg_torch.train``; 1-way, 32 support, 1 query, 32 ad items,
+   intra-support reconstruction, ``precise_stats``, f32, Adam at 1e-3) on
+   a synthetic corpus of 2 classes x 48 items made on the card from a
+   seed: ``init_state``, then 1 warm and ``TRAIN_STEPS`` timed steps on the
+   host clock, each ending in a sync. Launch counts reset just before the
+   warm step and read just after the last; each step must launch the pool
+   and its backward 5 times, the Chamfer kernel twice and the segment sum
+   4 times. Losses finite.
+8. train profile: one more step under ``torch.profiler`` (device time by
+   kernel group, busy share).
+9. train plain: one step at a reduced size (8 support, 64x64 images,
+   512 points, the full-width decoder) on the card and on the CPU from the
+   same weights, episode and template points: losses, a gradient sample
+   and the running statistics within the ``TRAIN_*_TOL`` bounds.
+10. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
-Details go to ``chiprun_out/chip_smoke.json``, the profile's per-kernel
-device times to ``chiprun_out/chip_smoke_profile.txt`` and the compiler's
+Details go to ``chiprun_out/chip_smoke.json``, the profiles' per-kernel
+device times to ``chiprun_out/chip_smoke_profile*.txt`` and the compiler's
 ``-Xptxas -v`` report to ``chiprun_out/chip_smoke_build.log``.
 """
 
@@ -51,11 +73,18 @@ import torch.nn.functional as F
 
 from fpsg_torch import ops
 from fpsg_torch.config import FPSGConfig
+from fpsg_torch.data.corpus import sample_episode
+from fpsg_torch.data.synthetic import synthetic_device_corpus
 from fpsg_torch.models import build_model
 from fpsg_torch.nn import fused_stack as fs
 from fpsg_torch.ops import _build
-from fpsg_torch.ops.pool import maxpool2x2, maxpool2x2_plain
+from fpsg_torch.ops.chamfer import nn_both, nn_both_plain
+from fpsg_torch.ops.pool import (
+    maxpool2x2, maxpool2x2_bwd, maxpool2x2_bwd_plain, maxpool2x2_plain,
+)
+from fpsg_torch.ops.scatter import segment_sum, segment_sum_plain
 from fpsg_torch.serve import Generator
+from fpsg_torch.train import init_model, init_state, make_train_step
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 SEED = 0
@@ -66,6 +95,24 @@ C, NN, D0 = 4, 4, 1539                     # clusters, nodes, d_node
 R = Q * (NPTS // C // NN)                  # rows per (cluster, node)
 MID_SHAPES = [(D0, D0 // 2), (D0 // 2, D0 // 4)]   # 1539->769, 769->384
 PER_CALL = {"maxpool2x2": 5, "fused_l1": 1, "fused_mid": 2, "fused_out": 1}
+# training: 32 support + 32 ad clouds, 32 ad + 1 query images
+S_TR, Q_TR, TRAIN_STEPS = 32, 1, 5
+B_IMG = S_TR + Q_TR
+TRAIN_POOL_SHAPES = [(B_IMG, 224, 224, 64), (B_IMG, 112, 112, 128),
+                     (B_IMG, 56, 56, 256), (B_IMG, 28, 28, 512),
+                     (B_IMG, 14, 14, 512)]
+PER_STEP = {"maxpool2x2": 5, "maxpool2x2_bwd": 5, "chamfer_nn": 2,
+            "segment_sum": 4, "fused_l1": 0, "fused_mid": 0, "fused_out": 0}
+# segment sum: f32 sums of a few values each; the plain version on the card
+# (index_add_ with float atomics) adds them in a varying order
+SEGSUM_TOL = 1e-6
+# One training step, card vs CPU, reduced size. The step is ill-conditioned
+# at small batch (the query decoder normalizes one cloud's rows): on the
+# CPU, 1e-7 relative noise on the weights moves the losses by ~3e-5 and
+# the gradients by up to 2e-2 of their max (tests/test_torch_train_step.py).
+# Losses: relative; gradients: of each sampled leaf's max; running
+# statistics: of each tensor's max.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_STATE_TOL = 1e-3, 5e-2, 1e-4
 # Tolerances, as max |kernel - plain| / max |plain|: f32 products summed in
 # another order; bf16 outputs round once to bf16 (2^-8 relative), and a
 # different summation order can move a value to the neighbouring bf16.
@@ -85,7 +132,14 @@ SOURCES = {
                   "fpsg_tpu/nn/fused_stack.py:314"),
     "fused_out": ("fpsg_torch/csrc/fused_stack.cu",
                   "fpsg_tpu/nn/fused_stack.py:682"),
+    "maxpool2x2_bwd": ("fpsg_torch/csrc/maxpool2x2.cu",
+                       "fpsg_tpu/nn/vgg.py:188"),
+    "chamfer_nn": ("fpsg_torch/csrc/chamfer.cu",
+                   "fpsg_tpu/ops/chamfer.py:172"),
+    "segment_sum": ("fpsg_torch/csrc/segment_sum.cu",
+                    "fpsg_tpu/ops/scatter.py:78"),
 }
+TRAIN_KERNELS = ("maxpool2x2", "maxpool2x2_bwd", "chamfer_nn", "segment_sum")
 
 
 def say(phase: str, **fields) -> None:
@@ -128,11 +182,12 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> tuple:
 
 # -- phase 3: kernels against their plain versions -------------------------
 
-def check_pool(dtype, gen) -> list:
+def check_pool(dtype, gen, shapes=POOL_SHAPES) -> list:
     rows = []
-    for shape in POOL_SHAPES:
+    for shape in shapes:
         # quantized values: many windows hold ties for the maximum
-        x = (torch.randn(shape, generator=gen) * 4).round().div(4)
+        x = (torch.randn(shape, generator=gen, device=gen.device) * 4) \
+            .round().div(4)
         x = x.to(dtype).cuda()
         y, code = maxpool2x2(x, return_index=True)
         ry, rcode = maxpool2x2_plain(x)
@@ -218,6 +273,89 @@ def check_fused(dtype, gen) -> dict:
     return out
 
 
+def check_pool_bwd(dtype, gen) -> list:
+    """K7b at the five training pool sites, bitwise against the plain
+    version, on codes from K7f over inputs with forced ties."""
+    rows = []
+    for shape in TRAIN_POOL_SHAPES:
+        x = (torch.randn(shape, generator=gen, device="cuda") * 4).round() \
+            .div(4).to(dtype)
+        _, code = maxpool2x2(x, return_index=True)
+        g = torch.randn((shape[0], shape[1] // 2, shape[2] // 2, shape[3]),
+                        generator=gen, device="cuda").to(dtype)
+        gx = maxpool2x2_bwd(g, code)
+        if not torch.equal(gx, maxpool2x2_bwd_plain(g, code)):
+            raise AssertionError(f"maxpool2x2_bwd {shape} {dtype}: not "
+                                 "bitwise equal to the plain version")
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        _, ind = F.max_pool2d(xn, 2, return_indices=True)
+        b, t = bound_ms(nbytes(g, code, gx), 0, dtype)
+        rows.append({
+            "shape": list(shape), "max_abs_err": 0.0, "bound_ms": b,
+            "bound_by": t, "calls": 1,
+            "ms": cuda_ms(lambda: maxpool2x2_bwd(g, code)),
+            "plain_ms": cuda_ms(lambda: maxpool2x2_bwd_plain(g, code)),
+            "library_ms": cuda_ms(
+                lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                    gn, xn, [2, 2], [2, 2], [0, 0], [1, 1], False, ind)),
+        })
+        del x, code, g, gx, xn, gn, ind
+    return rows
+
+
+def check_chamfer(gen) -> dict:
+    """K1 and K2 at the step's shapes: the query pass (B = 1) and the ad
+    pass (B = 32), 2048 points each. Per step each B runs K1 once and K2
+    twice (one push per direction)."""
+    rows = {"chamfer_nn": [], "segment_sum": []}
+    for b in (Q_TR, S_TR):
+        x = 0.5 * torch.randn((b, NPTS, 3), generator=gen, device="cuda")
+        y = 0.5 * torch.randn((b, NPTS, 3), generator=gen, device="cuda")
+        y[:, 16:32] = y[:, 0:16]            # duplicates: exact ties
+        x[:, 48:64] = x[:, 0:16]
+        got = nn_both(x, y)
+        ref = nn_both_plain(x, y)
+        if not all(torch.equal(u, v) for u, v in zip(got, ref)):
+            raise AssertionError(f"chamfer_nn B={b}: not bitwise equal to "
+                                 "the plain version")
+        if ((got[1] >= 16) & (got[1] < 32)).any() or \
+                ((got[3] >= 48) & (got[3] < 64)).any():
+            raise AssertionError(f"chamfer_nn B={b}: a tie went to a "
+                                 "later index")
+        # 10 operations per pair: 3 products, 2 adds (dot), 2x, subtract,
+        # add, clamp; then one compare in each direction
+        pairs = b * NPTS * NPTS
+        bnd, by = bound_ms(nbytes(x, y, *got), 10 * pairs, torch.float32)
+        rows["chamfer_nn"].append({
+            "shape": [b, NPTS, NPTS], "max_abs_err": 0.0, "bound_ms": bnd,
+            "bound_by": by, "calls": 1,
+            "ms": cuda_ms(lambda: nn_both(x, y)),
+            "plain_ms": cuda_ms(lambda: nn_both_plain(x, y)),
+            "library_ms": None,
+        })
+        vals = torch.randn((b, NPTS, 3), generator=gen, device="cuda")
+        idx = got[1]
+        out = segment_sum(vals, idx, NPTS)
+        err, rel = rel_err(out, segment_sum_plain(vals, idx, NPTS))
+        if not rel <= SEGSUM_TOL:
+            raise AssertionError(f"segment_sum B={b}: max abs err {err} "
+                                 f"({rel} of the output scale)")
+        flat = (idx.long() + NPTS * torch.arange(b, device="cuda")[:, None]
+                ).reshape(-1)
+        v2 = vals.reshape(-1, 3)
+        bnd, by = bound_ms(nbytes(vals, idx, out), vals.numel(),
+                           torch.float32)
+        rows["segment_sum"].append({
+            "shape": [b, NPTS, NPTS, 3], "max_abs_err": err,
+            "bound_ms": bnd, "bound_by": by, "calls": 2,
+            "ms": cuda_ms(lambda: segment_sum(vals, idx, NPTS)),
+            "plain_ms": cuda_ms(lambda: segment_sum_plain(vals, idx, NPTS)),
+            "library_ms": cuda_ms(lambda: torch.zeros(
+                (b * NPTS, 3), device="cuda").index_add_(0, flat, v2)),
+        })
+    return rows
+
+
 # -- phases 4 and 5: the serving path ----------------------------------------
 
 def serving_inputs(gen):
@@ -292,49 +430,178 @@ def check_stream(server: Generator, imgs, proto) -> float:
 
 
 KERNEL_GROUPS = (                       # device-time buckets, by name
-    ("port kernels", ("maxpool2x2_kernel", "fused_l1_kernel",
-                      "fused_mid_kernel", "fused_out_kernel")),
-    ("convolutions", ("conv", "xmma", "implicit", "winograd", "cudnn",
-                      "fft", "DSE")),
-    ("matmuls", ("gemm", "cutlass", "sgemm")),
-    ("copies", ("memcpy", "Memcpy")),
+    ("port kernels", ("maxpool2x2_kernel", "maxpool2x2_bwd_kernel",
+                      "fused_l1_kernel", "fused_mid_kernel",
+                      "fused_out_kernel", "nn_both_kernel",
+                      "segment_sum_kernel")),
+    # cuDNN's direct, implicit-GEMM, Winograd and FFT convolutions, the
+    # complex GEMMs and transforms of its FFT path, its layout transposes
+    ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "winograd",
+                      "cudnn", "fft", "DSE", "complex", "cf32",
+                      "region_transform")),
+    ("matmuls", ("gemm", "cutlass", "cublas")),
+    ("reductions", ("reduce_kernel", "Welford")),
+    ("copies", ("memcpy", "Memcpy", "copy")),
 )
 
 
-def profile_request(server: Generator, imgs, proto) -> dict:
-    """One request under ``torch.profiler``: device time by kernel and by
-    group, and the device's busy share of the request's wall time."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(fn, name: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel
+    and by group, and the device's busy share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    server(imgs, proto=proto)
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        server(imgs, proto=proto)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}                      # device-side events only: kernels,
-    for ev in prof.key_averages():    # copies (CPU ops would count twice)
+    by_name = {}      # device-side events only: kernels and copies (CPU
+    for ev in prof.key_averages():    # ops and annotated ranges would
         if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and ev.self_device_time_total > 0:
+                and not ev.is_user_annotation \
+                and ev.self_device_time_total > 0:    # count twice)
             by_name[ev.key] = by_name.get(ev.key, 0.0) \
                 + ev.self_device_time_total / 1e3
-    (OUT_DIR / "chip_smoke_profile.txt").write_text(
-        "\n".join(f"{ms:10.4f} ms  {name}" for name, ms in
+    (OUT_DIR / f"chip_smoke_profile{name}.txt").write_text(
+        "\n".join(f"{ms:10.4f} ms  {key}" for key, ms in
                   sorted(by_name.items(), key=lambda kv: -kv[1])))
     groups = {g: 0.0 for g, _ in KERNEL_GROUPS}
-    groups["other"] = 0.0
-    for name, ms in by_name.items():
+    groups["other (elementwise)"] = 0.0
+    for key, ms in by_name.items():
         group = next((g for g, keys in KERNEL_GROUPS
-                      if any(k in name for k in keys)), "other")
+                      if any(k in key for k in keys)), "other (elementwise)")
         groups[group] += ms
     busy = sum(by_name.values())
     return {"wall_ms": wall_ms,
             "device_ms": busy if busy > 0 else "not measured",
             "busy_share": busy / wall_ms if busy > 0 else "not measured",
             "groups_ms": groups,
-            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
+# -- phases 7 to 9: the training step ---------------------------------------
+
+def drive_training() -> tuple:
+    """The training path at the flagship width: 1 warm and TRAIN_STEPS
+    timed steps, launch counts checked per step."""
+    conf = FPSGConfig(seed=SEED, n_shot=S_TR, n_query=Q_TR,
+                      intra_recon=True, precise_stats=True)
+    t0 = time.perf_counter()
+    corpus = synthetic_device_corpus(2, 48, NPTS, IMG, seed=SEED)
+    state = init_state(conf)
+    step = make_train_step(conf)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_ms, metrics = [], []
+    for i in range(1 + TRAIN_STEPS):
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, corpus, gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        after = ops.launch_counts()
+        for name, per_step in PER_STEP.items():
+            if after[name] - before[name] != per_step:
+                raise AssertionError(
+                    f"train step {i}: {name} launched "
+                    f"{after[name] - before[name]} times, expected "
+                    f"{per_step}")
+        metrics.append({k: v.item() for k, v in m.items()})
+    counts = ops.launch_counts()
+    for m in metrics:
+        if not all(np.isfinite(m[k]) for k in ("query_rec_loss",
+                                               "support_rec_loss")):
+            raise AssertionError(f"non-finite training loss: {m}")
+    return state, corpus, step, gen, {
+        "init_s": init_s, "warm_step_ms": step_ms[0],
+        "step_ms": step_ms[1:],
+        "median_step_ms": statistics.median(step_ms[1:]),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "counts": counts, "metrics": metrics}
+
+
+GRAD_SAMPLE = ("img_encoder.encoder.features_0.weight",
+               "img_encoder.encoder.features_40.weight",
+               "pc_encoder.pointnet_feat_extractor.conv1.weight",
+               "pc_encoder.pointnet_feat_extractor.stn.fc3.weight",
+               "pc_decoder.deformer_conv1.weight",
+               "pc_decoder.node_conv1.weight",
+               "pc_decoder.node_conv4.weight")
+
+
+def compare_training_with_cpu() -> dict:
+    """One step (loss, backward, running-statistics update) at a reduced
+    size on the card and on the CPU, from the same weights, episode and
+    template points."""
+    n_s, n_pts, img = 8, 512, 64
+    conf = FPSGConfig(seed=SEED, n_shot=n_s, n_query=Q_TR, num_pts=n_pts,
+                      intra_recon=True, precise_stats=True)
+    corpus = synthetic_device_corpus(2, 12, n_pts, img, seed=SEED,
+                                     device="cpu")
+    batch = sample_episode(corpus, n_s, Q_TR,
+                           torch.Generator().manual_seed(SEED))
+    out = {}
+    for device in ("cuda", "cpu"):
+        model = init_model(conf, device)
+        dec = model.pc_decoder
+        tp = {"query": dec.template_points(
+                  Q_TR, torch.Generator().manual_seed(SEED + 3)),
+              "support": dec.template_points(
+                  n_s, torch.Generator().manual_seed(SEED + 4))}
+        loss = model.loss({k: v.to(device) for k, v in batch.items()},
+                          {k: v.to(device) for k, v in tp.items()})
+        loss["ttl_loss"].backward()
+        grads = {n: p.grad.detach().cpu() for n, p in
+                 model.named_parameters() if n in GRAD_SAMPLE}
+        out[device] = ({k: v.item() for k, v in loss.items()}, grads,
+                       {k: v.detach().cpu()
+                        for k, v in model.state_dict().items()})
+    (lc, gc, sc), (lh, gh, sh) = out["cuda"], out["cpu"]
+    res = {"loss_rel_diff": {k: abs(lc[k] - lh[k]) / abs(lh[k])
+                             for k in ("query_rec_loss",
+                                       "support_rec_loss")},
+           "grad_rel_diff": {}, "losses_cpu": lh}
+    for n in GRAD_SAMPLE:
+        res["grad_rel_diff"][n] = rel_err(gc[n], gh[n])[1]
+    # running statistics only: Adam's first step moves each parameter by
+    # ~lr * sign(gradient), which turns gradient noise near 0 into
+    # differences of 2 lr; the gradient sample covers the parameters
+    state = {k: rel_err(sc[k], sh[k])[1] for k in sh if "running_" in k}
+    worst = max(state, key=state.get)
+    res["state_worst"] = [worst, state[worst]]
+    bad = [k for k, v in res["loss_rel_diff"].items() if not v <= TRAIN_LOSS_TOL]
+    bad += [k for k, v in res["grad_rel_diff"].items()
+            if not v <= TRAIN_GRAD_TOL]
+    bad += [k for k, v in state.items() if not v <= TRAIN_STATE_TOL]
+    if bad:
+        raise AssertionError(f"training step, card vs CPU, out of bounds: "
+                             f"{bad[:8]} ({res})")
+    return res
+
+
+def kernel_line(name: str, rows: list, launches: int) -> dict:
+    """One kernel's entry of the ``kernels`` line: times summed over the
+    kernel's calls in one request or one step."""
+    def total(key):
+        return sum(r[key] * r.get("calls", 1) for r in rows)
+
+    source, replaces = SOURCES[name]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": (total("library_ms")
+                       if rows[0]["library_ms"] is not None else None),
+    }
 
 
 def main() -> int:
@@ -363,14 +630,22 @@ def main() -> int:
         per_source={k: v["seconds"] for k, v in report.items()})
 
     gen = torch.Generator().manual_seed(SEED)
-    detail = {"device": smi, "kernels": {}}
+    gpu_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    detail = {"device": smi, "kernels": {}, "train_kernels": {}}
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         rows = {"maxpool2x2": check_pool(dtype, gen), **check_fused(dtype, gen)}
         detail["kernels"][name] = rows
-        for kernel, per_shape in rows.items():
+        train_rows = {
+            "maxpool2x2": check_pool(dtype, gpu_gen, TRAIN_POOL_SHAPES),
+            "maxpool2x2_bwd": check_pool_bwd(dtype, gpu_gen)}
+        if dtype == torch.float32:
+            train_rows.update(check_chamfer(gpu_gen))
+        detail["train_kernels"][name] = train_rows
+        for kernel, per_shape in [*rows.items(), *train_rows.items()]:
             for row in per_shape:
                 say(f"kernel {kernel} {name}", **row)
+        torch.cuda.empty_cache()
 
     conf = FPSGConfig(seed=SEED)
     t0 = time.perf_counter()
@@ -382,7 +657,7 @@ def main() -> int:
         call_ms=main_run["call_ms"], launches=main_run["counts"],
         out_absmax=main_run["out_absmax"])
 
-    profiled = profile_request(server, imgs, proto)
+    profiled = profile(lambda: server(imgs, proto=proto), "")
     say("profile", **profiled)
 
     plain = compare_with_cpu(server, imgs, pcs, proto)
@@ -395,24 +670,35 @@ def main() -> int:
         raise AssertionError("bf16 request: non-finite or out of range")
     plain["bf16_out_absmax"] = float(np.abs(bf16_out).max())
     say("plain", **plain)
+    del server, bf16_server, proto
+    torch.cuda.empty_cache()
 
+    state, corpus, step, tgen, train_run = drive_training()
+    say("train", **train_run)
+    train_prof = profile(lambda: step(state, corpus, tgen), "_train")
+    say("train profile", **train_prof)
+    del state, corpus
+    torch.cuda.empty_cache()
+    train_plain = compare_training_with_cpu()
+    say("train plain", **train_plain)
+
+    # serving kernels at the serving shapes with the serving run's launches;
+    # the training path's kernels at the step's shapes with its launches
     lines = []
-    f32 = detail["kernels"]["f32"]
-    for kernel, (source, replaces) in SOURCES.items():
-        rows = f32[kernel]
-        # times summed over the kernel's call sites in one request
-        lines.append({
-            "name": kernel, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_run["counts"][kernel],
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            **{key: sum(r[key] for r in rows)
-               for key in ("ms", "plain_ms", "bound_ms")},
-            "bound_by": rows[0]["bound_by"],
-            "library_ms": (sum(r["library_ms"] for r in rows)
-                           if rows[0]["library_ms"] is not None else None),
-        })
+    for kernel in SOURCES:
+        if kernel in TRAIN_KERNELS:
+            rows = detail["train_kernels"]["f32"][kernel]
+            launches = train_run["counts"][kernel]
+        else:
+            rows = detail["kernels"]["f32"][kernel]
+            launches = main_run["counts"][kernel]
+        if launches < 1:
+            raise AssertionError(f"{kernel}: not launched on its path")
+        lines.append(kernel_line(kernel, rows, launches))
     detail.update(serve=main_run, profile=profiled, plain=plain,
-                  build_s=build_s, init_s=init_s, kernels_line=lines)
+                  build_s=build_s, init_s=init_s, train=train_run,
+                  train_profile=train_prof, train_plain=train_plain,
+                  kernels_line=lines)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(json.dumps({"kernels": lines}))
     print(smi)

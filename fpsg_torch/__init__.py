@@ -2,15 +2,23 @@
 
 A second package beside ``fpsg_tpu`` (the JAX reference, which it never
 imports). The port goes one slice at a time; this package holds the
-serving path:
+serving path and the episodic training step (``precise_stats``, f32):
 
 - ``fpsg_torch.serve``   — ``Generator``: prototype, per-call, keyed and
                            streamed generation.
-- ``fpsg_torch.models``  — ``ImgPCProtoNet`` (eval-mode entry points).
+- ``fpsg_torch.train``   — ``init_state``, ``make_train_step``: one
+                           episode, loss, backward and Adam per step.
+- ``fpsg_torch.models``  — ``ImgPCProtoNet``: the training loss and the
+                           eval-mode entry points.
 - ``fpsg_torch.nn``      — VGG16-bn, PointNet, the primitive decoder, the
-                           eval-mode BatchNorm and the fused node-chain
-                           layers (``nn/fused_stack.py``).
-- ``fpsg_torch.ops``     — the 2x2 max-pool and the kernel build.
+                           BatchNorm (batch statistics in training) and
+                           the fused node-chain layers
+                           (``nn/fused_stack.py``).
+- ``fpsg_torch.ops``     — the 2x2 max-pool and its backward, the Chamfer
+                           distance (nearest neighbour, segment sum) and
+                           the kernel build.
+- ``fpsg_torch.data``    — the device corpus, the episode sampler and the
+                           synthetic corpus.
 - ``fpsg_torch.csrc``    — CUDA C++ kernels for ``sm_90a``, built by
                            ``nvcc`` at first use (``ops/_build.py``).
 - ``fpsg_torch.io``      — the bridge from JAX variables to a state dict.

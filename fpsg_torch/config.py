@@ -1,4 +1,4 @@
-"""The configuration fields the serving path reads.
+"""The configuration fields the serving path and the training step read.
 
 A copy of the matching ``FPSGConfig`` fields of ``fpsg_tpu/config.py``
 (same names and defaults); the port keeps its own so that it never
@@ -27,6 +27,23 @@ class FPSGConfig:
     num_pts: int = 2048          # points per generated cloud
     compute_dtype: str = "f32"   # 'f32' or 'bf16' (params and BN stats
                                  # stay f32)
+
+    # episodic training
+    n_shot: int = 20
+    n_query: int = 0             # 0 -> n_shot (trainNetwork.py:71)
+    support_factor: float = 1.0
+    query_factor: float = 1.0
+    intra_recon: bool = False
+    pc_dist: str = "cd"
+    n_episode: int = 100         # episodes per epoch: the StepLR epoch
+    lr: float = 1e-3
+    lr_decay: int = 350          # epochs per halving of lr (StepLR)
+    episodes_per_step: int = 1
+    precise_stats: bool = False  # two-pass BN variance everywhere
+
+    @property
+    def effective_n_query(self) -> int:
+        return self.n_shot if self.n_query == 0 else self.n_query
 
     @property
     def num_points(self) -> int:

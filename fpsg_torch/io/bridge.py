@@ -16,6 +16,9 @@ Rules:
 - BatchNorm ``scale`` -> ``weight``, ``mean`` -> ``running_mean``,
   ``var`` -> ``running_var``; ``bias`` keeps its name.
 
+The map covers every parameter and BatchNorm buffer the port's model has,
+train mode included (the deformer BNs, ``node_bn*`` and the STN BNs): the
+tests load it with ``strict=True`` and map JAX gradient trees through it.
 No space-to-depth transform: the port's VGG block 1 runs the logical conv.
 Loading JAX checkpoint files comes with the slice that ports the CLIs.
 """

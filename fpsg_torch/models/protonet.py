@@ -1,6 +1,18 @@
 """The generator network: image branch + prototype branch + primitive
-decoder, eval-mode entry points (counterpart of
-``fpsg_tpu/models/protonet.py``).
+decoder (counterpart of ``fpsg_tpu/models/protonet.py``).
+
+Training (``model.train()``):
+
+- :meth:`ImgPCProtoNet.loss` (also ``forward``): the episodic objective
+  (``protonet.py:254-296``). Images are encoded as one batch [ad ‖
+  query], clouds as one batch [support ‖ ad] (``_encode``,
+  ``protonet.py:202-228``), so the BatchNorm statistics are the
+  reference's; the prototype is the mean of the support features; the
+  decoder runs on [img_q ‖ proto] and, with ``intra_support``, on
+  [img_ad ‖ pc_ad]; each reconstruction is the Chamfer distance summed
+  over its batch (``metric="cd"``).
+
+Eval (``model.eval()``):
 
 - :meth:`ImgPCProtoNet.encode_prototype`: PointNet over the support clouds,
   then the mean (``protonet.py:316-322``).
@@ -11,7 +23,8 @@ decoder, eval-mode entry points (counterpart of
 - :meth:`ImgPCProtoNet.generate`: both, from a sample dict.
 
 Only ``aggregate="single"`` is ported (``mask_single`` waits), with the
-``vgg_16`` image backbone and the ``pointnet`` cloud backbone.
+``vgg_16`` image backbone and the ``pointnet`` cloud backbone; the EMD
+metric and ``reconstruct`` wait for the evaluation slice.
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ from fpsg_torch.nn.decoder import PrimitiveDecoder
 from fpsg_torch.nn.pointnet import PointNetEncoder
 from fpsg_torch.nn.templates import get_template
 from fpsg_torch.nn.vgg import ImageEncoder
+from fpsg_torch.ops.chamfer import chamfer_distance
 
 IMG_FEATURES = 512    # VGG16 embedding width
 PC_FEATURES = 1024    # PointNet prototype width
@@ -48,7 +62,7 @@ def compute_dtype(conf: FPSGConfig) -> Optional[torch.dtype]:
 
 
 class ImgPCProtoNet(nn.Module):
-    """Few-shot single-image point-cloud generator (eval mode)."""
+    """Few-shot single-image point-cloud generator."""
 
     def __init__(self, img_backbone: str = "vgg_16",
                  pc_backbone: str = "pointnet", num_clusters: int = 4,
@@ -56,6 +70,8 @@ class ImgPCProtoNet(nn.Module):
                  bottleneck_size: int = 1536, ori_dim: int = 2,
                  raw_dim: int = 3, template_type: str = "SQUARE",
                  activation: str = "relu", aggregate: str = "single",
+                 query_factor: float = 1.0, support_factor: float = 1.0,
+                 metric: str = "cd", intra_support: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -64,6 +80,10 @@ class ImgPCProtoNet(nn.Module):
         if pc_backbone != "pointnet":
             raise NotImplementedError(
                 f"point-cloud backbone {pc_backbone!r} is not ported")
+        if metric != "cd":
+            raise NotImplementedError(f"metric {metric!r} is not ported")
+        self.query_factor, self.support_factor = query_factor, support_factor
+        self.intra_support = intra_support
         self.dtype = dtype
         self.img_encoder = ImageEncoder(img_backbone, dtype, generator)
         self.pc_encoder = PointNetEncoder(dtype, generator)
@@ -82,6 +102,58 @@ class ImgPCProtoNet(nn.Module):
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(conf.seed)
         return build_model(conf, gen).to(device).eval()
+
+    # -- training ----------------------------------------------------------
+
+    def _encode(self, sample: Dict[str, torch.Tensor]):
+        """``(img_zad, img_zq, pc_z_ad, proto_mat_q)`` of an episode."""
+        xq, xad = sample["xq"], sample["xad"]
+        n_support, n_query = xad.shape[0], xq.shape[0]
+        img_z = self.img_encoder(torch.cat([xad, xq], dim=0))
+        pc_z = self.pc_encoder(torch.cat([sample["pcs"], sample["pcad"]],
+                                         dim=0))
+        proto = pc_z[:n_support].mean(dim=0, keepdim=True)
+        return (img_z[:n_support], img_z[n_support:], pc_z[n_support:],
+                proto.expand(n_query, proto.shape[-1]))
+
+    @staticmethod
+    def _pc_metric(syn: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+        return chamfer_distance(syn, ref).sum()
+
+    def loss(self, sample: Dict[str, torch.Tensor],
+             template_points: Optional[Dict[str, torch.Tensor]] = None,
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        """The training objective of one episode: ``ttl_loss``,
+        ``recon_loss``, ``query_rec_loss``, ``support_rec_loss`` (scalars).
+
+        ``sample``: ``xq`` (Q, H, W, 3) and ``xad`` (S, H, W, 3) images in
+        [-1, 1]; ``pcs``, ``pcad`` (S, N, 3) and ``pcq`` (Q, N, 3) clouds.
+        ``template_points`` optionally pins the decoder's template draws
+        (``"query"`` / ``"support"``: (B, C, Nn, P, ori)); otherwise each
+        decoder pass draws from ``generator``."""
+        tp = template_points or {}
+        img_zad, img_zq, pc_z_ad, proto_mat_q = self._encode(sample)
+        syn_q = self.pc_decoder(torch.cat([img_zq, proto_mat_q], dim=1),
+                                tp.get("query"), generator)
+        loss_q = self._pc_metric(syn_q, sample["pcq"])
+        if self.intra_support:
+            # conditioned on per-item ad features, not the prototype
+            syn_s = self.pc_decoder(torch.cat([img_zad, pc_z_ad], dim=1),
+                                    tp.get("support"), generator)
+            loss_s = self._pc_metric(syn_s, sample["pcad"])
+        else:
+            loss_s = torch.zeros((), device=loss_q.device)
+        recon = self.query_factor * loss_q + self.support_factor * loss_s
+        return {"ttl_loss": recon, "recon_loss": recon,
+                "query_rec_loss": loss_q, "support_rec_loss": loss_s}
+
+    def forward(self, sample: Dict[str, torch.Tensor],
+                template_points: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None):
+        return self.loss(sample, template_points, generator)
+
+    # -- eval --------------------------------------------------------------
 
     def encode_prototype(self, pcs: torch.Tensor) -> torch.Tensor:
         """Class prototype (F,) from support clouds (S, N, 3)."""
@@ -131,7 +203,9 @@ def build_model(conf: FPSGConfig,
         num_points=conf.num_points, bottleneck_size=conf.bottleneck_size,
         ori_dim=conf.ori_dim, raw_dim=conf.raw_dim,
         template_type=conf.template_type, activation=conf.activation,
-        aggregate=conf.aggregate, dtype=compute_dtype(conf),
+        aggregate=conf.aggregate, query_factor=conf.query_factor,
+        support_factor=conf.support_factor, metric=conf.pc_dist,
+        intra_support=conf.intra_recon, dtype=compute_dtype(conf),
         generator=generator)
 
 

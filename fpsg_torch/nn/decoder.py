@@ -1,23 +1,30 @@
-"""Shape-primitive point-cloud decoder, eval mode
+"""Shape-primitive point-cloud decoder
 (counterpart of ``fpsg_tpu/nn/decoder.py``).
 
 ``num_clusters`` clusters, each one shared deformer plus ``num_nodes``
 node MLPs, with every cluster and node parameter stacked on leading axes:
 
 - the per-cluster deformer ``ori -> 128 -> 128 -> raw`` with tanh
-  (``decoder.py:220-265``), BN over feature axes ``(1, -1)``;
+  (``decoder.py:220-265``), BN over feature axes ``(1, -1)`` with one set
+  of training statistics per node (``group_axes=(2,)``: the reference
+  calls the shared deformer once per node);
 - node layer 1 with the conditioning half of its kernel hoisted out of the
   point dimension (``decoder.py:91-140, 356-366``): ``kh = W1[..., :d_cond,
   :]``, ``kd = W1[..., d_cond:, :]``, ``y_cond = einsum("be,cnef->cnbf")``;
-- the node chain ``d_node -> d_node -> d_node//2 -> d_node//4 -> raw``
-  through the three fused kernels of ``nn/fused_stack.py``, in group-major
-  ``(C, Nn, R = B*P, D)`` layout, each BN as its collapsed eval affine;
+- the node chain ``d_node -> d_node -> d_node//2 -> d_node//4 -> raw`` in
+  group-major ``(C, Nn, R = B*P, D)`` layout. In eval it runs the three
+  fused kernels of ``nn/fused_stack.py``, each BN as its collapsed eval
+  affine. In training it runs the unfused chain (``decoder.py:300-319``,
+  what the JAX package runs under ``precise_stats``): batched matmuls,
+  each BN with its batch statistics over R (two-pass form), relu, and a
+  tanh output; autograd gives the backward;
 - output ordered cluster-major, then node, then point
   (``decoder.py:426-430``).
 
 Stacked weights keep the JAX ``(*groups, d_in, d_out)`` layout: it is the
 kernels' layout. Template points are drawn from a ``torch.Generator`` on
-the CPU (so a seed gives the same points on every device) unless passed in.
+its device (serving draws on the CPU, so a seed gives the same points on
+every device; training draws on the card) unless passed in.
 Only ``activation="relu"`` is ported: the kernels fuse relu.
 """
 
@@ -83,9 +90,9 @@ class PrimitiveDecoder(nn.Module):
         self.deformer_conv2 = StackedDense((c,), w, w, g)
         self.deformer_conv3 = StackedDense((c,), w, raw_dim, g)
         self.deformer_bn1 = BatchNorm((c, w), (1, -1), activation="relu",
-                                      dtype=dtype)
+                                      dtype=dtype, group_axes=(2,))
         self.deformer_bn2 = BatchNorm((c, w), (1, -1), activation="relu",
-                                      dtype=dtype)
+                                      dtype=dtype, group_axes=(2,))
         d_node = raw_dim + bottleneck_size
         self.dims = [d_node, d_node, d_node // 2, d_node // 4, raw_dim]
         self.node_conv1 = StackedDense((c, n), d_cond + raw_dim,
@@ -95,7 +102,8 @@ class PrimitiveDecoder(nn.Module):
                 (c, n), self.dims[i - 1], self.dims[i], g))
         for i in (1, 2, 3):
             self.add_module(f"node_bn{i}", BatchNorm(
-                (c, n, self.dims[i]), (1, 2, -1), dtype=dtype))
+                (c, n, self.dims[i]), (0, 1, -1), activation="relu",
+                dtype=dtype))
 
     @property
     def points_per_node(self) -> int:
@@ -104,7 +112,8 @@ class PrimitiveDecoder(nn.Module):
     def template_points(self, batch: int,
                         generator: Optional[torch.Generator] = None
                         ) -> torch.Tensor:
-        """One (B, C, Nn, P, ori) draw on the CPU."""
+        """One (B, C, Nn, P, ori) draw on the generator's device (the CPU
+        without one)."""
         return get_template(self.template_type).get_random_points(
             (batch, self.num_clusters, self.num_nodes, self.points_per_node,
              self.ori_dim), generator)
@@ -140,6 +149,32 @@ class PrimitiveDecoder(nn.Module):
         # einsum("be,cnef->cnbf"); a broadcast batched matmul reads kh in
         # place, where einsum would first copy it to (e, c*n*f) layout
         y_cond = torch.matmul(h.to(dt), kh)                    # (C,Nn,B,F)
+        if self.training:
+            out = self._train_chain(dg, kd, y_cond, b, p, dt)
+        else:
+            out = self._eval_chain(dg, kd, y_cond, p, dt)  # (C,Nn,R,raw)
+        out = out.reshape(c, n, b, p, self.raw_dim)
+        return out.permute(2, 0, 1, 3, 4).reshape(b, c * n * p, self.raw_dim)
+
+    def _train_chain(self, dg, kd, y_cond, b, p, dt):
+        """The unfused node chain with batch statistics: ``[y_cond | d] @
+        W1`` as the hoisted conditioning term plus the point term, then
+        matmul -> BN -> relu twice, then matmul + bias -> tanh, f32 out."""
+        c, n = self.num_clusters, self.num_nodes
+        y = torch.matmul(dg, kd)                              # (C,Nn,R,F)
+        y = (y.reshape(c, n, b, p, -1) + y_cond[:, :, :, None, :]).reshape(
+            c, n, b * p, -1)
+        x = self.node_bn1(y, shift=self.node_conv1.bias)
+        for i in (2, 3):
+            conv = getattr(self, f"node_conv{i}")
+            x = getattr(self, f"node_bn{i}")(
+                torch.matmul(x, conv.weight.to(dt)), shift=conv.bias)
+        w4, bias4 = self.node_conv4.weight, self.node_conv4.bias
+        return torch.tanh(torch.matmul(x, w4.to(dt))
+                          + bias4[:, :, None, :].to(dt)).float()
+
+    def _eval_chain(self, dg, kd, y_cond, p, dt):
+        """The node chain through the fused kernels, eval affines."""
         y = fused_l1_layer(dg.contiguous(), kd.contiguous(),
                            y_cond.float().contiguous(), p)
         k, bb = self.node_bn1.affine(shift=self.node_conv1.bias)
@@ -147,7 +182,5 @@ class PrimitiveDecoder(nn.Module):
             conv = getattr(self, f"node_conv{i}")
             y = fused_mid_layer(y, k, bb, conv.weight.to(dt))
             k, bb = getattr(self, f"node_bn{i}").affine(shift=conv.bias)
-        out = fused_out_layer(y, k, bb, self.node_conv4.weight.to(dt),
-                              self.node_conv4.bias.float())  # (C,Nn,R,raw) f32
-        out = out.reshape(c, n, b, p, self.raw_dim)
-        return out.permute(2, 0, 1, 3, 4).reshape(b, c * n * p, self.raw_dim)
+        return fused_out_layer(y, k, bb, self.node_conv4.weight.to(dt),
+                               self.node_conv4.bias.float())

@@ -1,4 +1,4 @@
-"""PointNet encoder, eval mode (counterpart of ``fpsg_tpu/nn/pointnet.py``).
+"""PointNet encoder (counterpart of ``fpsg_tpu/nn/pointnet.py``).
 
 Points are ``(B, N, 3)`` channels-last; every 1x1 conv is a dense layer on
 the channel axis. Dense weights use torch's ``(out, in)`` layout (the
@@ -6,10 +6,13 @@ bridge transposes the JAX ``(in, out)`` kernels). Each dense bias before a
 BatchNorm folds into it (``shift=``).
 
 The BN -> global max-pool sites commute the per-channel affine through the
-max, as ``_bn_maxpool``'s eval branch does (``pointnet.py:138-155``):
+max, as ``_bn_maxpool``'s tensor branch does (``pointnet.py:138-155``):
 ``max_n act(k*y + b) == act(k*[max_n y | min_n y] + b)``, picking ``ymax``
-where ``k > 0`` and ``ymin`` elsewhere (``k == 0`` takes ``ymin``). The
-moments kernel belongs to train mode and is not on this path.
+where ``k > 0`` and ``ymin`` elsewhere (``k == 0`` takes ``ymin``). In
+training the affine comes from ``y``'s batch statistics (the two-pass
+form, the ``precise_stats`` branch); ``amax``/``amin`` split a tied
+maximum's gradient evenly, as ``jnp.max`` does. The one-read moments
+kernel (K3) serves the single-read statistics and is not on this path.
 """
 
 from __future__ import annotations
@@ -53,7 +56,7 @@ def bn_maxpool(y: torch.Tensor, b: torch.Tensor, bn: BatchNorm, relu: bool,
                out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     """BatchNorm (+relu) then max over the points axis of ``y`` (B, N, F),
     with the affine commuted through the max."""
-    k, beff = bn.affine(shift=b)                       # (F,) f32
+    k, beff = bn.affine(shift=b, x=y)                  # (F,) f32
     ymax = torch.amax(y.float(), dim=1)                # (B, F)
     ymin = torch.amin(y.float(), dim=1)
     od = out_dtype or y.dtype

@@ -1,8 +1,9 @@
 """Template surfaces for the shape-primitive decoder
 (counterpart of ``fpsg_tpu/nn/templates.py``).
 
-Random draws come from an explicit ``torch.Generator``; they are not the
-JAX PRNG's bits, so parity tests pass template points in explicitly.
+Random draws come from an explicit ``torch.Generator``, on that
+generator's device; they are not the JAX PRNG's bits, so parity tests pass
+template points in explicitly.
 Regular points are numpy, copied from the JAX package.
 """
 
@@ -12,6 +13,10 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+
+def _device(generator: Optional[torch.Generator]) -> Optional[torch.device]:
+    return generator.device if generator is not None else None
 
 
 class SquareTemplate:
@@ -25,7 +30,7 @@ class SquareTemplate:
                           ) -> torch.Tensor:
         """shape is (..., dim=2) points-last; returns uniform [0,1) f32."""
         return torch.rand(tuple(shape), generator=generator,
-                          dtype=torch.float32)
+                          dtype=torch.float32, device=_device(generator))
 
     @staticmethod
     def get_regular_points(npoints: int = 2048) -> np.ndarray:
@@ -48,7 +53,7 @@ class SphereTemplate:
                           generator: Optional[torch.Generator] = None
                           ) -> torch.Tensor:
         g = torch.randn(tuple(shape), generator=generator,
-                        dtype=torch.float32)
+                        dtype=torch.float32, device=_device(generator))
         return g / torch.sqrt(torch.sum(g * g, dim=-1, keepdim=True) + 1e-12)
 
     @staticmethod

@@ -1,5 +1,4 @@
-"""Image branch: VGG16-bn encoder, eval mode
-(counterpart of ``fpsg_tpu/nn/vgg.py``).
+"""Image branch: VGG16-bn encoder (counterpart of ``fpsg_tpu/nn/vgg.py``).
 
 torchvision VGG16-bn ``.features`` + a global average pool: a 224x224x3
 NHWC image batch -> (B, 512) f32. Module names carry the torchvision
@@ -9,14 +8,20 @@ NHWC image batch -> (B, 512) f32. Module names carry the torchvision
   package leaves them to XLA, ``vgg.py:385-388``). Activations stay NHWC in
   memory: the conv sees them as a channels_last NCHW view.
 - Each conv's bias folds into the following BatchNorm (``shift=``), which
-  applies the collapsed affine with relu fused.
-- Every ``"M"`` is the 2x2 max-pool kernel (``fpsg_torch/ops/pool.py``).
+  applies the collapsed affine with relu fused; in training with batch
+  statistics (the ``precise_stats`` two-pass form).
+- Every ``"M"`` is the 2x2 max-pool kernel (``fpsg_torch/ops/pool.py``),
+  differentiable through the backward kernel: one kernel pair for all five
+  sites. (In training under ``precise_stats`` the JAX package pools block
+  1 with the same Pallas pair and the other four sites with an XLA
+  custom VJP of the same semantics, ``vgg.py:434-480``.)
 - The final mean over H, W is taken in f32 (``vgg.py:689``).
 
 Not ported: the space-to-depth execution of block 1 (``vgg.py:41-89,
 560-613``) — a TPU lane-filling rewrite of the same conv; the weights keep
-their logical ``(64, 3, 3, 3)`` shape here. Also not yet ported:
-``fused_conv``, ``winograd``, ``stage_slice`` and ``TinyImageEncoder``.
+their logical ``(64, 3, 3, 3)`` shape here. Also not yet ported: the
+single-read training path ``_bn_pool_fused`` (kernel K4), ``fused_conv``,
+``winograd``, ``stage_slice`` and ``TinyImageEncoder``.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from torch import nn
 
 from fpsg_torch.nn._init import uniform_fan_in
 from fpsg_torch.nn.normalization import BatchNorm
-from fpsg_torch.ops.pool import maxpool2x2
+from fpsg_torch.ops.pool import pool2x2
 
 # torchvision cfg 'D' (vgg16): conv widths with 'M' maxpools.
 VGG16_CFG: Sequence[Union[int, str]] = (
@@ -86,7 +91,7 @@ class VGG16BN(nn.Module):
             x = x.to(self.dtype)
         for step in self._plan:
             if step[0] == "pool":
-                x = maxpool2x2(x)
+                x = pool2x2(x)
                 continue
             y, b = getattr(self, step[1])(x)
             x = getattr(self, step[2])(y, shift=b)

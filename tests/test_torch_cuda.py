@@ -6,17 +6,25 @@ Marker ``cuda``: these skip on a host without a CUDA device. On a card
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Small ragged shapes, to reach the kernels' edge masking; ``chip_smoke.py``
-holds the kernels against the plain versions at the serving shapes.
-Tolerances: f32 rtol/atol 1e-5 (the same products summed in another
-order); bf16 2e-2 (outputs round once to bf16, 2^-8 relative, and another
-summation order can land on the neighbouring bf16 value).
+holds the kernels against the plain versions at the serving and training
+shapes. Tolerances: f32 rtol/atol 1e-5 (the same products summed in
+another order); bf16 2e-2 (outputs round once to bf16, 2^-8 relative, and
+another summation order can land on the neighbouring bf16 value). The
+pool and its backward, and the Chamfer nearest neighbour, are bitwise; the
+segment sum within 1e-6 of its scale (the plain version on the card is
+``index_add_`` with float atomics, summed in a varying order).
 """
 
 import pytest
 import torch
 
 from fpsg_torch.nn import fused_stack as tfs
-from fpsg_torch.ops.pool import maxpool2x2, maxpool2x2_plain
+from fpsg_torch.ops.chamfer import chamfer_distance, nn_both, nn_both_plain
+from fpsg_torch.ops.pool import (
+    maxpool2x2, maxpool2x2_bwd, maxpool2x2_bwd_plain, maxpool2x2_plain,
+    pool2x2,
+)
+from fpsg_torch.ops.scatter import segment_sum, segment_sum_plain
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -52,3 +60,41 @@ def test_kernels_match_plain_on_card(dt):
     w4, bias = rnd(2, 3, 139, 3, dtype=tdt) / 12, rnd(2, 3, 3)
     torch.testing.assert_close(tfs.fused_out_layer(yp, k, b, w4, bias),
                                tfs.fused_out_plain(yp, k, b, w4, bias), **tol)
+
+
+@pytest.mark.cuda
+def test_training_kernels_match_plain_on_card():
+    """The pool backward, the Chamfer nearest neighbour (with forced ties)
+    and the segment sum against their plain versions, and the Chamfer
+    gradient on the card against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator().manual_seed(1)
+    for dt in DTYPES.values():
+        x = (torch.randn((2, 10, 14, 24), generator=gen) * 2).round().to(dt)
+        _, code = maxpool2x2(x.cuda(), return_index=True)
+        g = torch.randn((2, 5, 7, 24), generator=gen).to(dt).cuda()
+        assert torch.equal(maxpool2x2_bwd(g, code),
+                           maxpool2x2_bwd_plain(g, code))
+    xr = torch.randn((2, 6, 8, 16), generator=gen).cuda().requires_grad_()
+    pool2x2(xr).sum().backward()
+    assert xr.grad.sum().item() == 2 * 3 * 4 * 16
+
+    x = torch.randn((3, 300, 3), generator=gen)
+    y = torch.randn((3, 257, 3), generator=gen)
+    y[:, 9:18] = y[:, 0:9]                         # exact ties
+    x[:, 100:110] = x[:, 0:10]
+    got = nn_both(x.cuda(), y.cuda())
+    for a, b in zip(got, nn_both_plain(x.cuda(), y.cuda())):
+        assert torch.equal(a, b)
+    vals = torch.randn((3, 300, 3), generator=gen).cuda()
+    ref = segment_sum_plain(vals, got[1], 257)
+    err = (segment_sum(vals, got[1], 257) - ref).abs().max().item()
+    assert err <= 1e-6 * ref.abs().max().item()
+
+    xc, yc = x.clone().requires_grad_(), y.clone().requires_grad_()
+    xg, yg = x.cuda().requires_grad_(), y.cuda().requires_grad_()
+    chamfer_distance(xc, yc).sum().backward()
+    chamfer_distance(xg, yg).sum().backward()
+    torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(yg.grad.cpu(), yc.grad, rtol=1e-5, atol=1e-6)

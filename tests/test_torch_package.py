@@ -4,8 +4,8 @@
   its own copies of what it needs).
 - Importing the port, its serving module and ``chip_smoke`` loads no
   ``jax*``/``flax*``/``fpsg_tpu*`` module (checked in a fresh process).
-- The entry points default to CUDA and raise without a card instead of
-  running on the CPU.
+- The entry points (serving, training, the device corpus) default to
+  CUDA and raise without a card instead of running on the CPU.
 """
 
 import ast
@@ -43,7 +43,8 @@ def test_no_jax_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = (
         "import sys, fpsg_torch, fpsg_torch.serve, fpsg_torch.nn, "
-        "fpsg_torch.models, fpsg_torch.io.bridge\n"
+        "fpsg_torch.models, fpsg_torch.io.bridge, fpsg_torch.train, "
+        "fpsg_torch.data.synthetic, fpsg_torch.ops.chamfer\n"
         "assert 'fpsg_torch.ops._build' not in sys.modules, 'kernel build'\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -58,8 +59,10 @@ def test_importing_the_port_loads_no_jax():
 
 def test_entry_points_raise_without_a_card():
     from fpsg_torch.config import FPSGConfig
+    from fpsg_torch.data.synthetic import synthetic_device_corpus
     from fpsg_torch.models import ImgPCProtoNet
     from fpsg_torch.serve import Generator
+    from fpsg_torch.train import init_state
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -71,5 +74,10 @@ def test_entry_points_raise_without_a_card():
         ImgPCProtoNet.from_config(conf)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Generator.from_variables(conf, {})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_state(FPSGConfig(num_clusters=1, num_nodes=1, num_pts=8,
+                              bottleneck_size=8, precise_stats=True))
+    with pytest.raises(RuntimeError):
+        synthetic_device_corpus(1, 1, 8, 8)
     gen = Generator.from_config(conf, device="cpu")
     assert next(gen.model.parameters()).device.type == "cpu"
