@@ -17,11 +17,16 @@ Phases (one line each; any failure exits non-zero):
    training shapes (33 images; Chamfer at B = 1 and B = 32 clouds of 2048
    points): the max-pool and its backward bitwise, the Chamfer nearest
    neighbour bitwise (indices and distances, with duplicated points forcing
-   ties), the segment sum within ``SEGSUM_TOL``. Times by CUDA events
-   (median of repeats) for the kernel, the plain version and, where one
-   PyTorch call computes the same function, that call (``F.max_pool2d``,
+   ties), the segment sum within ``SEGSUM_TOL``; the single-read
+   statistics kernels at the step's shapes (K3 at 64 clouds x 2048 points
+   x 1024 channels, K4 at the five VGG BN -> pool sites of 33 images) in
+   f32 and bf16 on quantized inputs (forced ties): max/min values,
+   indices, codes and both backwards bitwise, the shifted sums within
+   ``STAT_SUM_TOL``. Times by CUDA events (median of repeats) for the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (``F.max_pool2d``,
    ``max_pool2d_with_indices_backward``, ``index_add_``; ``torch.bmm`` on
-   the already activated input for the mid layer).
+   the already activated input for the mid layer; none for K3 and K4).
 4. serve: ``Generator`` at the flagship width (VGG16-bn at 224x224,
    PointNet over 32 support clouds of 2048 points, 4x4 decoder, 2048
    points, random weights from a seed, f32): ``prototype`` once, then 5
@@ -43,14 +48,24 @@ Phases (one line each; any failure exits non-zero):
    host clock, each ending in a sync. Launch counts reset just before the
    warm step and read just after the last; each step must launch the pool
    and its backward 5 times, the Chamfer kernel twice and the segment sum
-   4 times. Losses finite.
+   4 times, and no single-read statistics kernel. Losses finite.
 8. train profile: one more step under ``torch.profiler`` (device time by
    kernel group, busy share).
 9. train plain: one step at a reduced size (8 support, 64x64 images,
    512 points, the full-width decoder) on the card and on the CPU from the
    same weights, episode and template points: losses, a gradient sample
    and the running statistics within the ``TRAIN_*_TOL`` bounds.
-10. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+10. train single-read: the same episode in ``bench.py``'s configuration,
+   single-read BatchNorm statistics and bf16 compute, at the flagship
+   width: ``init_state``, 1 warm and ``TRAIN_STEPS`` timed steps (and the
+   host's time to return from each step call, before the sync); each
+   step must launch K4f and K4b 5 times, K3f and K3b twice, the Chamfer
+   kernel twice, the segment sum 4 times and no max-pool kernel. Losses
+   finite; peak memory.
+11. single-read profile: one more such step under ``torch.profiler``.
+12. single-read plain: one step at the reduced size in f32 and in bf16 on
+   the card and on the CPU (``SR_*`` bounds).
+13. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``, the profiles' per-kernel
@@ -79,8 +94,15 @@ from fpsg_torch.models import build_model
 from fpsg_torch.nn import fused_stack as fs
 from fpsg_torch.ops import _build
 from fpsg_torch.ops.chamfer import nn_both, nn_both_plain
+from fpsg_torch.ops.moments import (
+    moments_bwd, moments_bwd_plain, moments_fwd, moments_fwd_plain,
+)
 from fpsg_torch.ops.pool import (
     maxpool2x2, maxpool2x2_bwd, maxpool2x2_bwd_plain, maxpool2x2_plain,
+)
+from fpsg_torch.ops.pool_moments import (
+    pool_moments_bwd, pool_moments_bwd_plain, pool_moments_fwd,
+    pool_moments_fwd_plain,
 )
 from fpsg_torch.ops.scatter import segment_sum, segment_sum_plain
 from fpsg_torch.serve import Generator
@@ -101,8 +123,20 @@ B_IMG = S_TR + Q_TR
 TRAIN_POOL_SHAPES = [(B_IMG, 224, 224, 64), (B_IMG, 112, 112, 128),
                      (B_IMG, 56, 56, 256), (B_IMG, 28, 28, 512),
                      (B_IMG, 14, 14, 512)]
+STAT_KERNELS = ("moments_fwd", "moments_bwd", "pool_moments_fwd",
+                "pool_moments_bwd")
 PER_STEP = {"maxpool2x2": 5, "maxpool2x2_bwd": 5, "chamfer_nn": 2,
-            "segment_sum": 4, "fused_l1": 0, "fused_mid": 0, "fused_out": 0}
+            "segment_sum": 4, "fused_l1": 0, "fused_mid": 0, "fused_out": 0,
+            **{k: 0 for k in STAT_KERNELS}}
+# single-read statistics (bench.py's configuration): K3 at the two PointNet
+# BN -> max sites, K4 at the five VGG BN -> pool sites, no K7
+PER_STEP_SR = {**PER_STEP, "maxpool2x2": 0, "maxpool2x2_bwd": 0,
+               "moments_fwd": 2, "moments_bwd": 2, "pool_moments_fwd": 5,
+               "pool_moments_bwd": 5}
+MOMENTS_SHAPE = (2 * S_TR, NPTS, 1024)     # [support ‖ ad] clouds, conv3
+# K3/K4 sums: f32 sums of up to 1.3e8 terms in another order than the plain
+# version's, relative to the largest |sum|
+STAT_SUM_TOL = 1e-5
 # segment sum: f32 sums of a few values each; the plain version on the card
 # (index_add_ with float atomics) adds them in a varying order
 SEGSUM_TOL = 1e-6
@@ -113,6 +147,14 @@ SEGSUM_TOL = 1e-6
 # Losses: relative; gradients: of each sampled leaf's max; running
 # statistics: of each tensor's max.
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_STATE_TOL = 1e-3, 5e-2, 1e-4
+# The same step with single-read statistics in bf16, card vs CPU: bf16
+# rounds every layer, and one-unit differences (another summation order in
+# cuDNN/cuBLAS) spread through the network. Each quantity (a loss,
+# relative; a gradient leaf, relative Frobenius norm; a running statistic,
+# max abs) is held to SR_FACTOR x the CPU path's own bf16 rounding
+# sensitivity at this seed: the larger of its bf16-vs-f32 gap and its
+# change under 1e-7 relative noise on the weights.
+SR_FACTOR = 3.0
 # Tolerances, as max |kernel - plain| / max |plain|: f32 products summed in
 # another order; bf16 outputs round once to bf16 (2^-8 relative), and a
 # different summation order can move a value to the neighbouring bf16.
@@ -138,8 +180,18 @@ SOURCES = {
                    "fpsg_tpu/ops/chamfer.py:172"),
     "segment_sum": ("fpsg_torch/csrc/segment_sum.cu",
                     "fpsg_tpu/ops/scatter.py:78"),
+    "moments_fwd": ("fpsg_torch/csrc/moments.cu",
+                    "fpsg_tpu/ops/moments.py:119"),
+    "moments_bwd": ("fpsg_torch/csrc/moments.cu",
+                    "fpsg_tpu/ops/moments.py:151"),
+    "pool_moments_fwd": ("fpsg_torch/csrc/pool_moments.cu",
+                         "fpsg_tpu/ops/pool_moments.py:123"),
+    "pool_moments_bwd": ("fpsg_torch/csrc/pool_moments.cu",
+                         "fpsg_tpu/ops/pool_moments.py:160"),
 }
-TRAIN_KERNELS = ("maxpool2x2", "maxpool2x2_bwd", "chamfer_nn", "segment_sum")
+# the path each kernel's launches and times are read from
+TRAIN_KERNELS = ("maxpool2x2", "maxpool2x2_bwd")          # precise_stats
+SR_KERNELS = ("chamfer_nn", "segment_sum", *STAT_KERNELS)  # single-read
 
 
 def say(phase: str, **fields) -> None:
@@ -356,6 +408,106 @@ def check_chamfer(gen) -> dict:
     return rows
 
 
+def _quantized(shape, gen, dtype):
+    """Values on a 0.25 grid: many exact ties for maxima and minima."""
+    return (torch.randn(shape, generator=gen, device="cuda") * 4).round() \
+        .div(4).to(dtype)
+
+
+def _check_stat_kernel(name, got, ref, sums=2):
+    """Sums within STAT_SUM_TOL of their scale, the rest bitwise; returns
+    the sums' max abs error."""
+    err = 0.0
+    for k, (u, v) in enumerate(zip(got, ref)):
+        if k < sums:
+            e, rel = rel_err(u, v)
+            if not rel <= STAT_SUM_TOL:
+                raise AssertionError(f"{name}: sum {k} off by {e} ({rel} of "
+                                     f"its scale) > {STAT_SUM_TOL}")
+            err = max(err, e)
+        elif not torch.equal(u, v):
+            raise AssertionError(f"{name}: output {k} not bitwise equal to "
+                                 "the plain version")
+    return err
+
+
+def check_moments(dtype, gen) -> dict:
+    """K3f and K3b at the PointNet conv3 shape, both per step twice."""
+    b, n, f = MOMENTS_SHAPE
+    y = _quantized((b, n, f), gen, dtype)
+    s = 0.1 * torch.randn(f, generator=gen, device="cuda")
+    got, ref = moments_fwd(y, s), moments_fwd_plain(y, s)
+    err = _check_stat_kernel(f"moments_fwd {dtype}", got, ref)
+    if not (got[3] < n).all():
+        raise AssertionError("moments_fwd: index out of range")
+    cot = [0.1 * torch.randn(f, generator=gen, device="cuda") for _ in "ab"]
+    cot += [torch.randn((b, f), generator=gen, device="cuda") for _ in "ab"]
+    args = (y, s, cot[0], cot[1], cot[2], got[3], cot[3], got[5])
+    gy = moments_bwd(*args)
+    if not torch.equal(gy, moments_bwd_plain(*args)):
+        raise AssertionError(f"moments_bwd {dtype}: not bitwise equal to "
+                             "the plain version")
+    # per element: subtract, add, multiply-add, two compares (f32 units)
+    fb, fby = bound_ms(nbytes(y, s, *got), 5 * y.numel(), torch.float32)
+    bb, bby = bound_ms(nbytes(*args, gy), 4 * y.numel(), torch.float32)
+    shape = [b, n, f]
+    return {
+        "moments_fwd": [{
+            "shape": shape, "max_abs_err": err, "bound_ms": fb,
+            "bound_by": fby, "calls": 2,
+            "ms": cuda_ms(lambda: moments_fwd(y, s)),
+            "plain_ms": cuda_ms(lambda: moments_fwd_plain(y, s), iters=3),
+            "library_ms": None}],
+        "moments_bwd": [{
+            "shape": shape, "max_abs_err": 0.0, "bound_ms": bb,
+            "bound_by": bby, "calls": 2,
+            "ms": cuda_ms(lambda: moments_bwd(*args)),
+            "plain_ms": cuda_ms(lambda: moments_bwd_plain(*args), iters=3),
+            "library_ms": None}],
+    }
+
+
+def check_pool_moments(dtype, gen) -> dict:
+    """K4f and K4b at the five VGG BN -> pool sites (packed view)."""
+    rows = {"pool_moments_fwd": [], "pool_moments_bwd": []}
+    for b, h, w, c in TRAIN_POOL_SHAPES:
+        y = _quantized((b, h, w // 2, 2 * c), gen, dtype)
+        s = 0.1 * torch.randn(c, generator=gen, device="cuda")
+        got, ref = pool_moments_fwd(y, s), pool_moments_fwd_plain(y, s)
+        err = _check_stat_kernel(f"pool_moments_fwd {(b, h, w, c)} {dtype}",
+                                 got, ref)
+        del ref
+        pooled = (b, h // 2, w // 2, c)
+        args = (y, s, 0.1 * torch.randn(c, generator=gen, device="cuda"),
+                0.1 * torch.randn(c, generator=gen, device="cuda"),
+                torch.randn(pooled, generator=gen, device="cuda").to(dtype),
+                got[3],
+                torch.randn(pooled, generator=gen, device="cuda").to(dtype),
+                got[5])
+        gy = pool_moments_bwd(*args)
+        if not torch.equal(gy, pool_moments_bwd_plain(*args)):
+            raise AssertionError(f"pool_moments_bwd {(b, h, w, c)} {dtype}: "
+                                 "not bitwise equal to the plain version")
+        fb, fby = bound_ms(nbytes(y, s, *got), 5 * y.numel(), torch.float32)
+        bb, bby = bound_ms(nbytes(*args, gy), 4 * y.numel(), torch.float32)
+        rows["pool_moments_fwd"].append({
+            "shape": [b, h, w, c], "max_abs_err": err, "bound_ms": fb,
+            "bound_by": fby, "calls": 1,
+            "ms": cuda_ms(lambda: pool_moments_fwd(y, s)),
+            "plain_ms": cuda_ms(lambda: pool_moments_fwd_plain(y, s),
+                                iters=3),
+            "library_ms": None})
+        rows["pool_moments_bwd"].append({
+            "shape": [b, h, w, c], "max_abs_err": 0.0, "bound_ms": bb,
+            "bound_by": bby, "calls": 1,
+            "ms": cuda_ms(lambda: pool_moments_bwd(*args)),
+            "plain_ms": cuda_ms(lambda: pool_moments_bwd_plain(*args),
+                                iters=3),
+            "library_ms": None})
+        del y, got, args, gy
+    return rows
+
+
 # -- phases 4 and 5: the serving path ----------------------------------------
 
 def serving_inputs(gen):
@@ -433,7 +585,8 @@ KERNEL_GROUPS = (                       # device-time buckets, by name
     ("port kernels", ("maxpool2x2_kernel", "maxpool2x2_bwd_kernel",
                       "fused_l1_kernel", "fused_mid_kernel",
                       "fused_out_kernel", "nn_both_kernel",
-                      "segment_sum_kernel")),
+                      "segment_sum_kernel", "moments_fwd_kernel",
+                      "moments_sum_kernel", "moments_bwd_kernel")),
     # cuDNN's direct, implicit-GEMM, Winograd and FFT convolutions, the
     # complex GEMMs and transforms of its FFT path, its layout transposes
     ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "winograd",
@@ -484,11 +637,11 @@ def profile(fn, name: str) -> dict:
 
 # -- phases 7 to 9: the training step ---------------------------------------
 
-def drive_training() -> tuple:
+def drive_training(per_step: dict, **conf_kw) -> tuple:
     """The training path at the flagship width: 1 warm and TRAIN_STEPS
-    timed steps, launch counts checked per step."""
+    timed steps, launch counts checked per step against ``per_step``."""
     conf = FPSGConfig(seed=SEED, n_shot=S_TR, n_query=Q_TR,
-                      intra_recon=True, precise_stats=True)
+                      intra_recon=True, **conf_kw)
     t0 = time.perf_counter()
     corpus = synthetic_device_corpus(2, 48, NPTS, IMG, seed=SEED)
     state = init_state(conf)
@@ -498,20 +651,20 @@ def drive_training() -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    step_ms, metrics = [], []
+    step_ms, host_ms, metrics = [], [], []
     for i in range(1 + TRAIN_STEPS):
         before = ops.launch_counts()
         t0 = time.perf_counter()
         state, m = step(state, corpus, gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3)   # enqueued
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         after = ops.launch_counts()
-        for name, per_step in PER_STEP.items():
-            if after[name] - before[name] != per_step:
+        for name, want in per_step.items():
+            if after[name] - before[name] != want:
                 raise AssertionError(
-                    f"train step {i}: {name} launched "
-                    f"{after[name] - before[name]} times, expected "
-                    f"{per_step}")
+                    f"train step {i} ({conf_kw}): {name} launched "
+                    f"{after[name] - before[name]} times, expected {want}")
         metrics.append({k: v.item() for k, v in m.items()})
     counts = ops.launch_counts()
     for m in metrics:
@@ -522,6 +675,7 @@ def drive_training() -> tuple:
         "init_s": init_s, "warm_step_ms": step_ms[0],
         "step_ms": step_ms[1:],
         "median_step_ms": statistics.median(step_ms[1:]),
+        "median_host_ms": statistics.median(host_ms[1:]),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "counts": counts, "metrics": metrics}
 
@@ -535,33 +689,45 @@ GRAD_SAMPLE = ("img_encoder.encoder.features_0.weight",
                "pc_decoder.node_conv4.weight")
 
 
-def compare_training_with_cpu() -> dict:
-    """One step (loss, backward, running-statistics update) at a reduced
-    size on the card and on the CPU, from the same weights, episode and
-    template points."""
-    n_s, n_pts, img = 8, 512, 64
-    conf = FPSGConfig(seed=SEED, n_shot=n_s, n_query=Q_TR, num_pts=n_pts,
-                      intra_recon=True, precise_stats=True)
-    corpus = synthetic_device_corpus(2, 12, n_pts, img, seed=SEED,
+N_S_RED, NPTS_RED, IMG_RED = 8, 512, 64       # the reduced step's size
+
+
+def reduced_step(device, noise: float = 0.0, **conf_kw) -> tuple:
+    """One step (loss, backward, running-statistics update) at the reduced
+    size on ``device``, from the weights of ``SEED`` (times 1 + ``noise`` x
+    a fixed normal draw), a fixed episode and fixed template points:
+    (losses, the GRAD_SAMPLE gradients, the state dict), on the CPU."""
+    conf = FPSGConfig(seed=SEED, n_shot=N_S_RED, n_query=Q_TR,
+                      num_pts=NPTS_RED, intra_recon=True, **conf_kw)
+    corpus = synthetic_device_corpus(2, 12, NPTS_RED, IMG_RED, seed=SEED,
                                      device="cpu")
-    batch = sample_episode(corpus, n_s, Q_TR,
+    batch = sample_episode(corpus, N_S_RED, Q_TR,
                            torch.Generator().manual_seed(SEED))
-    out = {}
-    for device in ("cuda", "cpu"):
-        model = init_model(conf, device)
-        dec = model.pc_decoder
-        tp = {"query": dec.template_points(
-                  Q_TR, torch.Generator().manual_seed(SEED + 3)),
-              "support": dec.template_points(
-                  n_s, torch.Generator().manual_seed(SEED + 4))}
-        loss = model.loss({k: v.to(device) for k, v in batch.items()},
-                          {k: v.to(device) for k, v in tp.items()})
-        loss["ttl_loss"].backward()
-        grads = {n: p.grad.detach().cpu() for n, p in
-                 model.named_parameters() if n in GRAD_SAMPLE}
-        out[device] = ({k: v.item() for k, v in loss.items()}, grads,
-                       {k: v.detach().cpu()
-                        for k, v in model.state_dict().items()})
+    model = init_model(conf, "cpu")
+    if noise:
+        g = torch.Generator().manual_seed(SEED + 5)
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1 + noise * torch.randn(p.shape, generator=g))
+    model = model.to(device)
+    dec = model.pc_decoder
+    tp = {"query": dec.template_points(
+              Q_TR, torch.Generator().manual_seed(SEED + 3)),
+          "support": dec.template_points(
+              N_S_RED, torch.Generator().manual_seed(SEED + 4))}
+    loss = model.loss({k: v.to(device) for k, v in batch.items()},
+                      {k: v.to(device) for k, v in tp.items()})
+    loss["ttl_loss"].backward()
+    grads = {n: p.grad.detach().cpu() for n, p in
+             model.named_parameters() if n in GRAD_SAMPLE}
+    return ({k: v.item() for k, v in loss.items()}, grads,
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def compare_training_with_cpu() -> dict:
+    """One precise_stats f32 step at the reduced size on the card and on
+    the CPU, from the same weights, episode and template points."""
+    out = {d: reduced_step(d, precise_stats=True) for d in ("cuda", "cpu")}
     (lc, gc, sc), (lh, gh, sh) = out["cuda"], out["cpu"]
     res = {"loss_rel_diff": {k: abs(lc[k] - lh[k]) / abs(lh[k])
                              for k in ("query_rec_loss",
@@ -582,6 +748,52 @@ def compare_training_with_cpu() -> dict:
     if bad:
         raise AssertionError(f"training step, card vs CPU, out of bounds: "
                              f"{bad[:8]} ({res})")
+    return res
+
+
+def _distances(a: tuple, b: tuple) -> dict:
+    """Per quantity: losses (relative), the gradient sample (relative
+    Frobenius norm), running statistics (max abs) of step ``a`` from
+    step ``b``."""
+    (la, ga, sa), (lb, gb, sb) = a, b
+    out = {f"loss {k}": abs(la[k] - lb[k]) / abs(lb[k])
+           for k in ("query_rec_loss", "support_rec_loss")}
+    out.update({f"grad {n}": float((ga[n] - gb[n]).norm() / gb[n].norm())
+                for n in GRAD_SAMPLE})
+    out.update({f"stat {k}": float((sa[k] - sb[k]).abs().max())
+                for k in sb if "running_" in k})
+    return out
+
+
+def compare_single_read_with_cpu() -> dict:
+    """The reduced step with single-read statistics: f32 card vs CPU within
+    the TRAIN_*_TOL bounds; bf16 card vs CPU within SR_FACTOR x the CPU
+    path's own bf16 rounding sensitivity."""
+    cpu32 = reduced_step("cpu")
+    cpu16 = reduced_step("cpu", compute_dtype="bf16")
+    cpu16n = reduced_step("cpu", noise=1e-7, compute_dtype="bf16")
+    card32 = reduced_step("cuda")
+    card16 = reduced_step("cuda", compute_dtype="bf16")
+    gap, wiggle = _distances(cpu16, cpu32), _distances(cpu16n, cpu16)
+    dist = _distances(card16, cpu16)
+    ratio = {k: dist[k] / max(gap[k], wiggle[k], 1e-30) for k in dist}
+    f32 = _distances(card32, cpu32)
+    f32_bad = [k for k, v in f32.items() if not v <= (
+        TRAIN_LOSS_TOL if k.startswith("loss") else
+        TRAIN_GRAD_TOL if k.startswith("grad") else
+        TRAIN_STATE_TOL * max(float(cpu32[2][k[5:]].abs().max()), 1e-30))]
+    worst = max(ratio, key=ratio.get)
+    res = {"f32_worst": max(f32.items(), key=lambda kv: kv[1]),
+           "bf16_worst_ratio": [worst, ratio[worst]],
+           "bf16_loss_rel_diff": {k: v for k, v in dist.items()
+                                  if k.startswith("loss")},
+           "bf16_loss_gap": {k: v for k, v in gap.items()
+                             if k.startswith("loss")},
+           "losses_cpu_bf16": cpu16[0]}
+    bad = [k for k, v in ratio.items() if not v <= SR_FACTOR]
+    if f32_bad or bad:
+        raise AssertionError(f"single-read step, card vs CPU, out of bounds: "
+                             f"f32 {f32_bad[:8]}, bf16 {bad[:8]} ({res})")
     return res
 
 
@@ -638,7 +850,9 @@ def main() -> int:
         detail["kernels"][name] = rows
         train_rows = {
             "maxpool2x2": check_pool(dtype, gpu_gen, TRAIN_POOL_SHAPES),
-            "maxpool2x2_bwd": check_pool_bwd(dtype, gpu_gen)}
+            "maxpool2x2_bwd": check_pool_bwd(dtype, gpu_gen),
+            **check_moments(dtype, gpu_gen),
+            **check_pool_moments(dtype, gpu_gen)}
         if dtype == torch.float32:
             train_rows.update(check_chamfer(gpu_gen))
         detail["train_kernels"][name] = train_rows
@@ -673,22 +887,39 @@ def main() -> int:
     del server, bf16_server, proto
     torch.cuda.empty_cache()
 
-    state, corpus, step, tgen, train_run = drive_training()
+    state, corpus, step, tgen, train_run = drive_training(
+        PER_STEP, precise_stats=True)
     say("train", **train_run)
     train_prof = profile(lambda: step(state, corpus, tgen), "_train")
     say("train profile", **train_prof)
-    del state, corpus
+    del state, corpus, step
     torch.cuda.empty_cache()
     train_plain = compare_training_with_cpu()
     say("train plain", **train_plain)
+    torch.cuda.empty_cache()
+
+    state, corpus, step, tgen, sr_run = drive_training(
+        PER_STEP_SR, precise_stats=False, compute_dtype="bf16")
+    say("train single-read", **sr_run)
+    sr_prof = profile(lambda: step(state, corpus, tgen), "_train_sr")
+    say("single-read profile", **sr_prof)
+    del state, corpus, step
+    torch.cuda.empty_cache()
+    sr_plain = compare_single_read_with_cpu()
+    say("single-read plain", **sr_plain)
 
     # serving kernels at the serving shapes with the serving run's launches;
-    # the training path's kernels at the step's shapes with its launches
+    # the training paths' kernels at the step's shapes with their runs'
+    # launches (the single-read kernels in bf16, the main path's dtype)
     lines = []
     for kernel in SOURCES:
         if kernel in TRAIN_KERNELS:
             rows = detail["train_kernels"]["f32"][kernel]
             launches = train_run["counts"][kernel]
+        elif kernel in SR_KERNELS:
+            dt = "bf16" if kernel in STAT_KERNELS else "f32"
+            rows = detail["train_kernels"][dt][kernel]
+            launches = sr_run["counts"][kernel]
         else:
             rows = detail["kernels"]["f32"][kernel]
             launches = main_run["counts"][kernel]
@@ -698,7 +929,8 @@ def main() -> int:
     detail.update(serve=main_run, profile=profiled, plain=plain,
                   build_s=build_s, init_s=init_s, train=train_run,
                   train_profile=train_prof, train_plain=train_plain,
-                  kernels_line=lines)
+                  train_single_read=sr_run, single_read_profile=sr_prof,
+                  single_read_plain=sr_plain, kernels_line=lines)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(json.dumps({"kernels": lines}))
     print(smi)

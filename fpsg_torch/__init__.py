@@ -2,7 +2,8 @@
 
 A second package beside ``fpsg_tpu`` (the JAX reference, which it never
 imports). The port goes one slice at a time; this package holds the
-serving path and the episodic training step (``precise_stats``, f32):
+serving path and the episodic training step (BatchNorm statistics
+single-read or two-pass, f32 or bf16 compute):
 
 - ``fpsg_torch.serve``   — ``Generator``: prototype, per-call, keyed and
                            streamed generation.
@@ -15,8 +16,9 @@ serving path and the episodic training step (``precise_stats``, f32):
                            the fused node-chain layers
                            (``nn/fused_stack.py``).
 - ``fpsg_torch.ops``     — the 2x2 max-pool and its backward, the Chamfer
-                           distance (nearest neighbour, segment sum) and
-                           the kernel build.
+                           distance (nearest neighbour, segment sum), the
+                           one-read BatchNorm moments of the PointNet and
+                           VGG BN -> pool sites, and the kernel build.
 - ``fpsg_torch.data``    — the device corpus, the episode sampler and the
                            synthetic corpus.
 - ``fpsg_torch.csrc``    — CUDA C++ kernels for ``sm_90a``, built by

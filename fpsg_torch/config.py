@@ -39,7 +39,11 @@ class FPSGConfig:
     lr: float = 1e-3
     lr_decay: int = 350          # epochs per halving of lr (StepLR)
     episodes_per_step: int = 1
+    steps_per_call: int = 0      # optimizer steps per dispatch (0 = auto)
     precise_stats: bool = False  # two-pass BN variance everywhere
+    bf16_moments: bool = False   # Adam moments stored bf16
+    dp: int = 1                  # data-parallel mesh size
+    mp: int = 1                  # model-parallel mesh size
 
     @property
     def effective_n_query(self) -> int:

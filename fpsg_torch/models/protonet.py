@@ -11,6 +11,11 @@ Training (``model.train()``):
   decoder runs on [img_q ‖ proto] and, with ``intra_support``, on
   [img_ad ‖ pc_ad]; each reconstruction is the Chamfer distance summed
   over its batch (``metric="cd"``).
+- The encoders and the decoder compute in the model's dtype (bf16 in bf16
+  mode); their outputs, the prototype, the losses and the Chamfer
+  distances are f32. BatchNorm statistics are single-read (``node_bn1``
+  excepted), or two-pass everywhere with ``precise_stats``
+  (``conf.precise_stats``).
 
 Eval (``model.eval()``):
 
@@ -73,7 +78,8 @@ class ImgPCProtoNet(nn.Module):
                  query_factor: float = 1.0, support_factor: float = 1.0,
                  metric: str = "cd", intra_support: bool = False,
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 precise_stats: bool = False):
         super().__init__()
         if aggregate != "single":
             raise NotImplementedError(f"aggregate {aggregate!r} is not ported")
@@ -85,14 +91,16 @@ class ImgPCProtoNet(nn.Module):
         self.query_factor, self.support_factor = query_factor, support_factor
         self.intra_support = intra_support
         self.dtype = dtype
-        self.img_encoder = ImageEncoder(img_backbone, dtype, generator)
-        self.pc_encoder = PointNetEncoder(dtype, generator)
+        self.img_encoder = ImageEncoder(img_backbone, dtype, generator,
+                                        precise_stats)
+        self.pc_encoder = PointNetEncoder(dtype, generator, precise_stats)
         self.pc_decoder = PrimitiveDecoder(
             num_clusters=num_clusters, num_nodes=num_nodes,
             num_points=num_points, bottleneck_size=bottleneck_size,
             d_cond=IMG_FEATURES + PC_FEATURES, ori_dim=ori_dim,
             raw_dim=raw_dim, template_type=template_type,
-            activation=activation, dtype=dtype, generator=generator)
+            activation=activation, dtype=dtype, generator=generator,
+            precise_stats=precise_stats)
 
     @classmethod
     def from_config(cls, conf: FPSGConfig, device="cuda") -> "ImgPCProtoNet":
@@ -206,7 +214,7 @@ def build_model(conf: FPSGConfig,
         aggregate=conf.aggregate, query_factor=conf.query_factor,
         support_factor=conf.support_factor, metric=conf.pc_dist,
         intra_support=conf.intra_recon, dtype=compute_dtype(conf),
-        generator=generator)
+        generator=generator, precise_stats=conf.precise_stats)
 
 
 def per_item_template_points(model: ImgPCProtoNet,

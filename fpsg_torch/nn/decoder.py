@@ -15,9 +15,17 @@ node MLPs, with every cluster and node parameter stacked on leading axes:
   group-major ``(C, Nn, R = B*P, D)`` layout. In eval it runs the three
   fused kernels of ``nn/fused_stack.py``, each BN as its collapsed eval
   affine. In training it runs the unfused chain (``decoder.py:300-319``,
-  what the JAX package runs under ``precise_stats``): batched matmuls,
-  each BN with its batch statistics over R (two-pass form), relu, and a
-  tanh output; autograd gives the backward;
+  what the JAX package runs under ``precise_stats`` or
+  ``decoder_fused="off"``): batched matmuls, each BN with its batch
+  statistics over R, relu, and a tanh output; autograd gives the backward;
+- BatchNorm statistics (``decoder.py:235-243, 280-319``; PARITY.md:124):
+  ``node_bn1`` is always two-pass (at B = 1 its channels are nearly
+  constant at a large offset, where the single-read form cancels); the
+  deformer BNs and ``node_bn2/3`` are two-pass only under
+  ``precise_stats``, single-read otherwise;
+- compute in the model's dtype (bf16 in bf16 mode: the deformer, ``h``,
+  ``d`` and the node chain), the output f32 after the tanh
+  (``decoder.py:270-272, 312-315``);
 - output ordered cluster-major, then node, then point
   (``decoder.py:426-430``).
 
@@ -70,7 +78,8 @@ class PrimitiveDecoder(nn.Module):
                  template_type: str = "SQUARE", activation: str = "relu",
                  deformer_width: int = 128,
                  dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 precise_stats: bool = False):
         super().__init__()
         if activation != "relu":
             raise NotImplementedError(
@@ -90,9 +99,11 @@ class PrimitiveDecoder(nn.Module):
         self.deformer_conv2 = StackedDense((c,), w, w, g)
         self.deformer_conv3 = StackedDense((c,), w, raw_dim, g)
         self.deformer_bn1 = BatchNorm((c, w), (1, -1), activation="relu",
-                                      dtype=dtype, group_axes=(2,))
+                                      dtype=dtype, group_axes=(2,),
+                                      two_pass=precise_stats)
         self.deformer_bn2 = BatchNorm((c, w), (1, -1), activation="relu",
-                                      dtype=dtype, group_axes=(2,))
+                                      dtype=dtype, group_axes=(2,),
+                                      two_pass=precise_stats)
         d_node = raw_dim + bottleneck_size
         self.dims = [d_node, d_node, d_node // 2, d_node // 4, raw_dim]
         self.node_conv1 = StackedDense((c, n), d_cond + raw_dim,
@@ -103,7 +114,7 @@ class PrimitiveDecoder(nn.Module):
         for i in (1, 2, 3):
             self.add_module(f"node_bn{i}", BatchNorm(
                 (c, n, self.dims[i]), (0, 1, -1), activation="relu",
-                dtype=dtype))
+                dtype=dtype, two_pass=i == 1 or precise_stats))
 
     @property
     def points_per_node(self) -> int:

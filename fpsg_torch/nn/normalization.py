@@ -19,10 +19,17 @@
   (``normalization.py:337-372``): the deformer BNs, called once per node
   by the reference, use ``group_axes=(2,)``.
 - training (``self.training``): batch mean and biased variance over the
-  remaining axes, taken in two passes' precision (``torch.var_mean``, no
-  ``E[x^2] - E[x]^2`` cancellation: the ``two_pass=True`` form); torch
-  momentum 0.1 and the unbiased (``n / (n - 1)``) variance in the running
-  estimate. The gradient is autograd's, through the statistics.
+  remaining axes, in one of two forms (``two_pass``):
+  - ``two_pass=True`` (the ``precise_stats`` form): ``torch.var_mean``,
+    no ``E[x^2] - E[x]^2`` cancellation;
+  - ``two_pass=False`` (the single-read shifted variance,
+    ``normalization.py:299-313``): with the constant
+    ``s = stop_grad(running_mean - shift)``,
+    ``var = max(E[(x - s)^2] - (E[x] - s)^2, 0)``; ``s`` tracks the batch
+    mean, so the subtraction does not cancel, and a kernel can take both
+    statistics from one read of ``x``.
+  Torch momentum 0.1 and the unbiased (``n / (n - 1)``) variance in the
+  running estimate. The gradient is autograd's, through the statistics.
 - the collapsed affine ``k = rsqrt(var + eps) * scale``, ``b_eff = bias -
   mean * k`` in f32 (``normalization.py:374-402``), applied in the output
   dtype (bf16 in bf16 mode, else f32), with relu fused when
@@ -32,9 +39,14 @@
 - :meth:`BatchNorm.affine` is the ``return_affine`` mode: it hands
   ``(k, b_eff)`` to a caller that applies them itself (inside a kernel, or
   commuted through a max).
+- stats injection (``normalization.py:153-215``), for a kernel that reads
+  the big tensor itself: :meth:`BatchNorm.stat_shift` is the
+  ``return_shift`` mode (the ``s`` the kernel subtracts before it sums),
+  :meth:`BatchNorm.affine_from_stats` the ``stats=(mean, var, n)`` +
+  ``return_affine`` mode (the running-estimate update of the tensor path,
+  then ``(k, b_eff)`` in f32).
 
-Not ported yet: the single-read shifted variance (``two_pass=False``),
-``phase_groups`` and stats injection (``stats=``, ``return_shift=``).
+Not ported: ``phase_groups`` (the port has no space-to-depth block 1).
 """
 
 from __future__ import annotations
@@ -63,6 +75,8 @@ class BatchNorm(nn.Module):
       group_axes: input axes with their own batch statistics in training.
       activation: ``"relu"`` fuses relu into the affine, or ``None``.
       dtype: output dtype (``None``: the input's).
+      two_pass: the two-pass batch variance; False takes the single-read
+        shifted form.
     """
 
     def __init__(self, param_shape: Sequence[int],
@@ -70,13 +84,15 @@ class BatchNorm(nn.Module):
                  epsilon: float = 1e-5,
                  activation: Optional[str] = None,
                  dtype: Optional[torch.dtype] = None,
-                 group_axes: Tuple[int, ...] = ()):
+                 group_axes: Tuple[int, ...] = (),
+                 two_pass: bool = True):
         super().__init__()
         if activation not in (None, "relu"):
             raise NotImplementedError(activation)
         shape = tuple(param_shape)
         self.feature_axes = tuple(feature_axes)
         self.group_axes = tuple(group_axes)
+        self.two_pass = two_pass
         self.epsilon = epsilon
         self.activation = activation
         self.dtype = dtype
@@ -100,8 +116,17 @@ class BatchNorm(nn.Module):
         f_axes = {a % nd for a in self.feature_axes}
         g_axes = sorted(a % nd for a in self.group_axes)
         reduce = [a for a in range(nd) if a not in f_axes and a not in g_axes]
-        var, mean = torch.var_mean(x.to(_stat_dtype(x)), dim=reduce,
-                                   correction=0, keepdim=True)
+        xf = x.to(_stat_dtype(x))
+        if self.two_pass:
+            var, mean = torch.var_mean(xf, dim=reduce, correction=0,
+                                       keepdim=True)
+        else:
+            s = self._expand(self.stat_shift(shift).to(xf.dtype), nd)
+            mean = torch.mean(xf, dim=reduce, keepdim=True)
+            d = xf - s
+            delta = mean - s
+            var = torch.clamp_min(torch.mean(d * d, dim=reduce, keepdim=True)
+                                  - delta * delta, 0.0)
         n = 1
         for a in reduce:
             n *= x.shape[a]
@@ -134,6 +159,37 @@ class BatchNorm(nn.Module):
                                 + torch.tensordot(w.to(mean_g), mean_g, 1))
         self.running_var.copy_(decay * self.running_var
                                + torch.tensordot(w.to(var_g), var_g, 1))
+
+    def stat_shift(self, shift: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
+        """The single-read statistics' shift ``s = running_mean - shift``
+        in ``param_shape``, f32, without gradient."""
+        s = self.running_mean.float()
+        if shift is not None:
+            s = s - torch.broadcast_to(shift.detach().float(), s.shape)
+        return s.detach()
+
+    def affine_from_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                          n: int, shift: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Stats injection: ``mean``, ``var`` (``param_shape``) are the batch
+        statistics of the bias-less input over ``n`` elements, computed by
+        the caller (a kernel). Updates the running estimates as the tensor
+        path does (momentum, Bessel, shift fold) and returns the collapsed
+        affine ``(k, b_eff)`` in f32, differentiable in ``mean``, ``var``
+        and the parameters."""
+        if self.group_axes:
+            raise ValueError("injected statistics have no group axes")
+        mean, var = mean.float(), var.float()
+        with torch.no_grad():
+            m = MOMENTUM
+            up = mean if shift is None else \
+                mean + torch.broadcast_to(shift.float(), mean.shape)
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * up)
+            self.running_var.copy_((1.0 - m) * self.running_var
+                                   + m * var * (n / max(n - 1, 1)))
+        k = torch.rsqrt(var + self.epsilon) * self.weight.float()
+        return k, self.bias.float() - mean * k
 
     def affine(self, shift: Optional[torch.Tensor] = None,
                x: Optional[torch.Tensor] = None

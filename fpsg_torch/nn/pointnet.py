@@ -6,13 +6,22 @@ bridge transposes the JAX ``(in, out)`` kernels). Each dense bias before a
 BatchNorm folds into it (``shift=``).
 
 The BN -> global max-pool sites commute the per-channel affine through the
-max, as ``_bn_maxpool``'s tensor branch does (``pointnet.py:138-155``):
+max (``_bn_maxpool``, ``pointnet.py:117-155``):
 ``max_n act(k*y + b) == act(k*[max_n y | min_n y] + b)``, picking ``ymax``
 where ``k > 0`` and ``ymin`` elsewhere (``k == 0`` takes ``ymin``). In
-training the affine comes from ``y``'s batch statistics (the two-pass
-form, the ``precise_stats`` branch); ``amax``/``amin`` split a tied
-maximum's gradient evenly, as ``jnp.max`` does. The one-read moments
-kernel (K3) serves the single-read statistics and is not on this path.
+training the affine comes from ``y``'s batch statistics:
+
+- single-read (``precise_stats=False``, the default): one read of ``y`` by
+  :func:`fpsg_torch.ops.moments.moments_minmax` (kernel K3 on the card)
+  gives the shifted sums and the per-cloud max/min; the BatchNorm takes
+  the statistics by injection. The max/min gradient goes to the first
+  index attaining it.
+- ``precise_stats``: the two-pass statistics of the BatchNorm, and
+  ``amax``/``amin``, which split a tied maximum's gradient evenly, as
+  ``jnp.max`` does.
+
+Every BatchNorm of the encoder is two-pass exactly under
+``precise_stats`` (``pointnet.py:172, 247-261``).
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from torch import nn
 
 from fpsg_torch.nn._init import uniform_fan_in
 from fpsg_torch.nn.normalization import BatchNorm
+from fpsg_torch.ops.moments import moments_minmax
 
 
 class DenseFold(nn.Module):
@@ -56,9 +66,17 @@ def bn_maxpool(y: torch.Tensor, b: torch.Tensor, bn: BatchNorm, relu: bool,
                out_dtype: Optional[torch.dtype]) -> torch.Tensor:
     """BatchNorm (+relu) then max over the points axis of ``y`` (B, N, F),
     with the affine commuted through the max."""
-    k, beff = bn.affine(shift=b, x=y)                  # (F,) f32
-    ymax = torch.amax(y.float(), dim=1)                # (B, F)
-    ymin = torch.amin(y.float(), dim=1)
+    if bn.training and not bn.two_pass:
+        s = bn.stat_shift(b)
+        zs, zq, ymax, ymin = moments_minmax(y, s)     # one read of y
+        n = y.shape[0] * y.shape[1]
+        mz = zs / n
+        var = torch.clamp_min(zq / n - mz * mz, 0.0)
+        k, beff = bn.affine_from_stats(mz + s, var, n, shift=b)
+    else:
+        k, beff = bn.affine(shift=b, x=y)              # (F,) f32
+        ymax = torch.amax(y.float(), dim=1)            # (B, F)
+        ymin = torch.amin(y.float(), dim=1)
     od = out_dtype or y.dtype
     cd = od if od == torch.bfloat16 else k.dtype
     sel = torch.where(k > 0, ymax, ymin).to(cd)
@@ -72,7 +90,8 @@ class STN3d(nn.Module):
     """Spatial transformer predicting a 3x3 alignment."""
 
     def __init__(self, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 precise_stats: bool = False):
         super().__init__()
         self.dtype = dtype
         g = generator
@@ -84,7 +103,8 @@ class STN3d(nn.Module):
         self.fc3 = Dense(256, 9, dtype, g)
         for i, f in enumerate((64, 128, 1024, 512, 256), start=1):
             self.add_module(f"bn{i}", BatchNorm((f,), activation="relu",
-                                                dtype=dtype))
+                                                dtype=dtype,
+                                                two_pass=precise_stats))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.bn1(*self.conv1(x))
@@ -102,17 +122,19 @@ class PointNetFeat(nn.Module):
     """Global 1024-d PointNet feature (``feature_transform=False``)."""
 
     def __init__(self, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 precise_stats: bool = False):
         super().__init__()
         self.dtype = dtype
         g = generator
-        self.stn = STN3d(dtype, g)
+        self.stn = STN3d(dtype, g, precise_stats)
         self.conv1 = DenseFold(3, 64, dtype, g)
         self.conv2 = DenseFold(64, 128, dtype, g)
         self.conv3 = DenseFold(128, 1024, dtype, g)
-        self.bn1 = BatchNorm((64,), activation="relu", dtype=dtype)
-        self.bn2 = BatchNorm((128,), activation="relu", dtype=dtype)
-        self.bn3 = BatchNorm((1024,), dtype=dtype)
+        bn = dict(dtype=dtype, two_pass=precise_stats)
+        self.bn1 = BatchNorm((64,), activation="relu", **bn)
+        self.bn2 = BatchNorm((128,), activation="relu", **bn)
+        self.bn3 = BatchNorm((1024,), **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         trans = self.stn(x)
@@ -127,9 +149,11 @@ class PointNetEncoder(nn.Module):
     """``PCEncoder(core='pointnet')``: (B, N, 3) -> (B, 1024) f32."""
 
     def __init__(self, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 precise_stats: bool = False):
         super().__init__()
-        self.pointnet_feat_extractor = PointNetFeat(dtype, generator)
+        self.pointnet_feat_extractor = PointNetFeat(dtype, generator,
+                                                    precise_stats)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pointnet_feat_extractor(x)

@@ -11,11 +11,18 @@ draws its template points from the same generator), backpropagate, and
 take one Adam step at the scheduled rate. Nothing in it waits for the
 device: the metrics come back as device tensors.
 
-Supported configuration: ``precise_stats=True`` (two-pass BatchNorm
-statistics everywhere), f32 compute, the Chamfer metric. The single-read
-statistics and bf16 compute are the next training slice; E > 1 (per-episode
-statistics, averaged running estimates), ``steps_per_call`` and ``mesh``
-wait for theirs. The TPU layout pins and relayout barrier are not ported.
+Supported configuration: one episode per step, f32 Adam moments, the
+Chamfer metric, BatchNorm statistics single-read (the default; kernels K3
+and K4 at the PointNet and VGG pool sites) or two-pass
+(``precise_stats=True``), compute in ``compute_dtype`` "f32" or "bf16"
+(parameters, BatchNorm statistics, losses and the Chamfer distances stay
+f32). The decoder runs its unfused node chain in training, as the JAX
+package does with ``decoder_fused="off"``. E > 1 (per-episode statistics,
+averaged running estimates), ``steps_per_call`` > 1 and ``bf16_moments``
+wait for the next training slice, a device mesh (``dp``, ``mp``) for the
+multi-device one; ``steps_per_call=0`` (auto) runs one step per call, as
+the fused steps' updates are the same. The TPU layout pins and relayout
+barrier are not ported.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 from fpsg_torch.config import FPSGConfig
 from fpsg_torch.data.corpus import DeviceCorpus, sample_episode
 from fpsg_torch.models.protonet import (
-    ImgPCProtoNet, build_model, resolve_device,
+    ImgPCProtoNet, build_model, compute_dtype, resolve_device,
 )
 from fpsg_torch.train.optim import make_lr_schedule, make_optimizer
 from fpsg_torch.train.state import TrainState
@@ -36,14 +43,20 @@ Metrics = Dict[str, torch.Tensor]
 
 
 def _check_supported(conf: FPSGConfig) -> None:
-    if not conf.precise_stats:
-        raise NotImplementedError(
-            "training runs with precise_stats=True (two-pass BatchNorm "
-            "statistics); the single-read form is not ported yet")
+    nxt = "comes with the next training slice (the K5 training kernels)"
     if conf.episodes_per_step != 1:
-        raise NotImplementedError("training runs one episode per step")
-    if conf.compute_dtype != "f32":
-        raise NotImplementedError("training runs in f32")
+        raise NotImplementedError(
+            f"episodes_per_step={conf.episodes_per_step}: E > 1 {nxt}")
+    if conf.steps_per_call > 1:
+        raise NotImplementedError(
+            f"steps_per_call={conf.steps_per_call}: fused steps {nxt}")
+    if conf.bf16_moments:
+        raise NotImplementedError(f"bf16_moments: bf16 Adam moments {nxt}")
+    if conf.dp != 1 or conf.mp != 1:
+        raise NotImplementedError(
+            f"dp={conf.dp}, mp={conf.mp}: a device mesh comes with the "
+            "multi-device slice")
+    compute_dtype(conf)                        # 'f32' or 'bf16'
 
 
 def init_model(conf: FPSGConfig, device="cuda") -> ImgPCProtoNet:
@@ -57,7 +70,8 @@ def init_model(conf: FPSGConfig, device="cuda") -> ImgPCProtoNet:
 
 def init_state(conf: FPSGConfig, device="cuda") -> TrainState:
     """The model of :func:`init_model` and a fresh Adam. On a card, TF32
-    is turned off for cuDNN and cuBLAS (process-wide): the step is f32."""
+    is turned off for cuDNN and cuBLAS (process-wide): the f32 parts of a
+    step, bf16 mode's Chamfer distances included, stay full f32."""
     _check_supported(conf)
     model = init_model(conf, device)
     if next(model.parameters()).device.type == "cuda":

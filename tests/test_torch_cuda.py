@@ -12,13 +12,18 @@ another order); bf16 2e-2 (outputs round once to bf16, 2^-8 relative, and
 another summation order can land on the neighbouring bf16 value). The
 pool and its backward, and the Chamfer nearest neighbour, are bitwise; the
 segment sum within 1e-6 of its scale (the plain version on the card is
-``index_add_`` with float atomics, summed in a varying order).
+``index_add_`` with float atomics, summed in a varying order). The
+single-read statistics kernels (K3f/K3b, K4f/K4b): max/min values,
+indices, codes and the backward bitwise; the shifted sums within 1e-6 of
+their scale (another summation order).
 """
 
 import pytest
 import torch
 
 from fpsg_torch.nn import fused_stack as tfs
+from fpsg_torch.ops import moments as mo
+from fpsg_torch.ops import pool_moments as pm
 from fpsg_torch.ops.chamfer import chamfer_distance, nn_both, nn_both_plain
 from fpsg_torch.ops.pool import (
     maxpool2x2, maxpool2x2_bwd, maxpool2x2_bwd_plain, maxpool2x2_plain,
@@ -98,3 +103,49 @@ def test_training_kernels_match_plain_on_card():
     chamfer_distance(xg, yg).sum().backward()
     torch.testing.assert_close(xg.grad.cpu(), xc.grad, rtol=1e-5, atol=1e-6)
     torch.testing.assert_close(yg.grad.cpu(), yc.grad, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_stat_kernels_match_plain_on_card():
+    """K3f/K3b and K4f/K4b against their plain versions on the card, with
+    forced ties, on the vector path (channels a multiple of 16 bytes) and
+    the scalar path (ragged channels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator().manual_seed(2)
+
+    def rnd(*shape, dtype=torch.float32, ties=False):
+        x = torch.randn(shape, generator=gen)
+        if ties:
+            x = (x * 2).round() / 2                # many equal values
+        return x.to(dtype).cuda()
+
+    def sums_close(got, ref):
+        assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+
+    for dt in DTYPES.values():
+        for f in (136, 21):                        # vector, scalar path
+            y, s = rnd(3, 257, f, dtype=dt, ties=True), rnd(f)
+            got = mo.moments_fwd(y, s)
+            ref = mo.moments_fwd_plain(y, s)
+            sums_close(got[0], ref[0])
+            sums_close(got[1], ref[1])
+            for k in (2, 3, 4, 5):
+                assert torch.equal(got[k], ref[k])
+            cots = (rnd(f), rnd(f), rnd(3, f), got[3], rnd(3, f), got[5])
+            args = (y, s, cots[0], cots[1], cots[2], cots[3], cots[4],
+                    cots[5])
+            assert torch.equal(mo.moments_bwd(*args),
+                               mo.moments_bwd_plain(*args))
+        for c in (72, 13):                         # vector, scalar path
+            y, s = rnd(2, 10, 7, 2 * c, dtype=dt, ties=True), rnd(c)
+            got = pm.pool_moments_fwd(y, s)
+            ref = pm.pool_moments_fwd_plain(y, s)
+            sums_close(got[0], ref[0])
+            sums_close(got[1], ref[1])
+            for k in (2, 3, 4, 5):
+                assert torch.equal(got[k], ref[k])
+            args = (y, s, rnd(c), rnd(c), rnd(2, 5, 7, c, dtype=dt), got[3],
+                    rnd(2, 5, 7, c, dtype=dt), got[5])
+            assert torch.equal(pm.pool_moments_bwd(*args),
+                               pm.pool_moments_bwd_plain(*args))

@@ -121,7 +121,8 @@ def world():
     def port():
         model = build_model(FPSGConfig(num_clusters=C, num_nodes=NN,
                                        num_pts=NPTS,
-                                       bottleneck_size=BOTTLENECK))
+                                       bottleneck_size=BOTTLENECK,
+                                       precise_stats=True))
         model.load_state_dict(sd)
         return model.train()
 
@@ -215,8 +216,15 @@ BN_CASES = {
 
 @pytest.mark.parametrize("case", sorted(BN_CASES))
 def test_batchnorm_train_matches_jax(rng, case):
+    check_batchnorm_case(rng, case, two_pass=True)
+
+
+def check_batchnorm_case(rng, case, two_pass):
+    """One ``BN_CASES`` BatchNorm in training, JAX against the port with
+    the same parameters, running statistics, shift, input and cotangent:
+    output, input and parameter gradients, updated running statistics."""
     shape, jf, jg, tf, perm = BN_CASES[case]
-    jbn = JaxBatchNorm(feature_axes=jf, group_axes=jg, two_pass=True,
+    jbn = JaxBatchNorm(feature_axes=jf, group_axes=jg, two_pass=two_pass,
                        activation="relu")
     x = (2.0 + rng.standard_normal(shape)).astype(np.float32)
     pshape = tuple(shape[a] for a in sorted(a % len(shape) for a in jf))
@@ -240,7 +248,8 @@ def test_batchnorm_train_matches_jax(rng, case):
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a))
 
-    bn = BatchNorm(pshape, tf, activation="relu", group_axes=jg).train()
+    bn = BatchNorm(pshape, tf, activation="relu", group_axes=jg,
+                   two_pass=two_pass).train()
     with torch.no_grad():
         for name, a in (("weight", scale), ("bias", bias),
                         ("running_mean", rmean), ("running_var", rvar)):

@@ -198,8 +198,10 @@ def test_train_step_on_the_cpu():
 
 
 def test_unported_training_modes_raise():
-    for kw in ({"precise_stats": False}, {"episodes_per_step": 2},
-               {"compute_dtype": "bf16"}):
+    for kw in ({"episodes_per_step": 2}, {"steps_per_call": 2},
+               {"bf16_moments": True}, {"dp": 2}, {"mp": 2}):
         conf = FPSGConfig(**{"precise_stats": True, **kw})
         with pytest.raises(NotImplementedError):
             make_train_step(conf)
+    with pytest.raises(ValueError):
+        make_train_step(FPSGConfig(compute_dtype="f16"))
