@@ -22,11 +22,17 @@ Phases (one line each; any failure exits non-zero):
    x 1024 channels, K4 at the five VGG BN -> pool sites of 33 images) in
    f32 and bf16 on quantized inputs (forced ties): max/min values,
    indices, codes and both backwards bitwise, the shifted sums within
-   ``STAT_SUM_TOL``. Times by CUDA events (median of repeats) for the
+   ``STAT_SUM_TOL``; the decoder's training kernels (K5d/K5a with
+   statistics, K5e, K5b, K5c, K5g) at both decoder passes of the step
+   (B = 1 and B = 32 clouds of 128 points a node, 16 nodes) in f32 and
+   bf16 with forced relu ties: outputs within ``F32_TOL`` of their scale
+   (bf16: one bf16 ulp plus that), sums within ``STAT_SUM_TOL``, relu
+   masks identical. Times by CUDA events (median of repeats) for the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (``F.max_pool2d``,
-   ``max_pool2d_with_indices_backward``, ``index_add_``; ``torch.bmm`` on
-   the already activated input for the mid layer; none for K3 and K4).
+   ``max_pool2d_with_indices_backward``, ``index_add_``; ``torch.bmm`` of
+   the mid layers' product alone: forward, dx and dW on the already
+   activated or adjusted operands; none for K3, K4, K5d, K5e, K5g).
 4. serve: ``Generator`` at the flagship width (VGG16-bn at 224x224,
    PointNet over 32 support clouds of 2048 points, 4x4 decoder, 2048
    points, random weights from a seed, f32): ``prototype`` once, then 5
@@ -55,17 +61,27 @@ Phases (one line each; any failure exits non-zero):
    512 points, the full-width decoder) on the card and on the CPU from the
    same weights, episode and template points: losses, a gradient sample
    and the running statistics within the ``TRAIN_*_TOL`` bounds.
-10. train single-read: the same episode in ``bench.py``'s configuration,
-   single-read BatchNorm statistics and bf16 compute, at the flagship
-   width: ``init_state``, 1 warm and ``TRAIN_STEPS`` timed steps (and the
-   host's time to return from each step call, before the sync); each
-   step must launch K4f and K4b 5 times, K3f and K3b twice, the Chamfer
-   kernel twice, the segment sum 4 times and no max-pool kernel. Losses
+10. train single-read: the same episode with single-read BatchNorm
+   statistics and bf16 compute, the decoder's unfused chain
+   (``decoder_fused="off"``) and f32 Adam moments, at the flagship width:
+   ``init_state``, 1 warm and ``TRAIN_STEPS`` timed steps (and the host's
+   time to return from each step call, before the sync); each step must
+   launch K4f and K4b 5 times, K3f and K3b twice, the Chamfer kernel
+   twice, the segment sum 4 times and no max-pool or K5 kernel. Losses
    finite; peak memory.
 11. single-read profile: one more such step under ``torch.profiler``.
 12. single-read plain: one step at the reduced size in f32 and in bf16 on
    the card and on the CPU (``SR_*`` bounds).
-13. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+13. train bench: ``bench.py``'s configuration, the single-read bf16 step
+   with the decoder's fused chain (``decoder_fused`` on ``auto``, so on),
+   bf16 Adam moments and ``steps_per_call=8``: 1 warm and
+   ``TRAIN_STEPS`` timed calls of 8 optimizer steps; per optimizer step
+   the launches of phase 10 plus K5d and K5e twice, K5a, K5b and K5c 4
+   times, K5f and K5g twice (``PER_STEP_BENCH``).
+14. bench profile: one more call under ``torch.profiler``.
+15. bench plain: phase 12 with the fused chain on both sides (the CPU's
+   forced ``"on"``).
+16. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``, the profiles' per-kernel
@@ -116,7 +132,9 @@ POOL_SHAPES = [(Q, 224, 224, 64), (Q, 112, 112, 128), (Q, 56, 56, 256),
 C, NN, D0 = 4, 4, 1539                     # clusters, nodes, d_node
 R = Q * (NPTS // C // NN)                  # rows per (cluster, node)
 MID_SHAPES = [(D0, D0 // 2), (D0 // 2, D0 // 4)]   # 1539->769, 769->384
-PER_CALL = {"maxpool2x2": 5, "fused_l1": 1, "fused_mid": 2, "fused_out": 1}
+PER_CALL = {"maxpool2x2": 5, "fused_l1": 1, "fused_mid": 2, "fused_out": 1,
+            "fused_l1_stats": 0, "fused_mid_stats": 0, "fused_mid_dx": 0,
+            "fused_mid_dw": 0, "fused_l1_bwd": 0, "fused_out_bwd": 0}
 # training: 32 support + 32 ad clouds, 32 ad + 1 query images
 S_TR, Q_TR, TRAIN_STEPS = 32, 1, 5
 B_IMG = S_TR + Q_TR
@@ -125,14 +143,25 @@ TRAIN_POOL_SHAPES = [(B_IMG, 224, 224, 64), (B_IMG, 112, 112, 128),
                      (B_IMG, 14, 14, 512)]
 STAT_KERNELS = ("moments_fwd", "moments_bwd", "pool_moments_fwd",
                 "pool_moments_bwd")
+# the decoder's training kernels: K5d/K5a with statistics, K5b/K5c/K5e/K5g
+K5_TRAIN = ("fused_l1_stats", "fused_mid_stats", "fused_mid_dx",
+            "fused_mid_dw", "fused_l1_bwd", "fused_out_bwd")
 PER_STEP = {"maxpool2x2": 5, "maxpool2x2_bwd": 5, "chamfer_nn": 2,
             "segment_sum": 4, "fused_l1": 0, "fused_mid": 0, "fused_out": 0,
-            **{k: 0 for k in STAT_KERNELS}}
+            **{k: 0 for k in STAT_KERNELS}, **{k: 0 for k in K5_TRAIN}}
 # single-read statistics (bench.py's configuration): K3 at the two PointNet
 # BN -> max sites, K4 at the five VGG BN -> pool sites, no K7
 PER_STEP_SR = {**PER_STEP, "maxpool2x2": 0, "maxpool2x2_bwd": 0,
                "moments_fwd": 2, "moments_bwd": 2, "pool_moments_fwd": 5,
                "pool_moments_bwd": 5}
+# bench.py's configuration: the same plus the decoder's fused node chain in
+# both passes (query and ad), forward and backward
+PER_STEP_BENCH = {**PER_STEP_SR, "fused_l1_stats": 2, "fused_mid_stats": 4,
+                  "fused_out": 2, "fused_out_bwd": 2, "fused_mid_dx": 4,
+                  "fused_mid_dw": 4, "fused_l1_bwd": 2}
+BENCH_K = 8                                 # bench.py --steps-per-call
+PPN = NPTS // C // NN                      # points per node: 128
+DEC_BATCHES = (Q_TR, S_TR)                 # the query and the ad pass
 MOMENTS_SHAPE = (2 * S_TR, NPTS, 1024)     # [support ‖ ad] clouds, conv3
 # K3/K4 sums: f32 sums of up to 1.3e8 terms in another order than the plain
 # version's, relative to the largest |sum|
@@ -159,6 +188,12 @@ SR_FACTOR = 3.0
 # another order; bf16 outputs round once to bf16 (2^-8 relative), and a
 # different summation order can move a value to the neighbouring bf16.
 F32_TOL, BF16_TOL = 1e-5, 1e-2
+# The decoder's training kernels (phase 3, K5_TRAIN), elementwise: f32
+# outputs and every f32 sum (statistics, dk, db, dbias, dy_cond, dsc)
+# within F32_TOL / STAT_SUM_TOL of the output's scale; bf16 outputs within
+# one bf16 ulp of the plain value plus F32_TOL of the scale (the f32
+# accumulations, in another order, can sit on either side of a rounding
+# boundary; the ulp alone fails where the value cancels to near 0).
 # Whole path, card vs CPU, max |card - cpu| / max |cpu|: f32 with TF32 off
 # on both; cuDNN/oneDNN convs and the kernels sum in other orders.
 PATH_TOL = 1e-4
@@ -188,6 +223,18 @@ SOURCES = {
                          "fpsg_tpu/ops/pool_moments.py:123"),
     "pool_moments_bwd": ("fpsg_torch/csrc/pool_moments.cu",
                          "fpsg_tpu/ops/pool_moments.py:160"),
+    "fused_l1_stats": ("fpsg_torch/csrc/fused_stack.cu",
+                       "fpsg_tpu/nn/fused_stack.py:533"),
+    "fused_mid_stats": ("fpsg_torch/csrc/fused_stack.cu",
+                        "fpsg_tpu/nn/fused_stack.py:314"),
+    "fused_mid_dx": ("fpsg_torch/csrc/fused_stack.cu",
+                     "fpsg_tpu/nn/fused_stack.py:351"),
+    "fused_mid_dw": ("fpsg_torch/csrc/fused_stack.cu",
+                     "fpsg_tpu/nn/fused_stack.py:371"),
+    "fused_l1_bwd": ("fpsg_torch/csrc/fused_stack.cu",
+                     "fpsg_tpu/nn/fused_stack.py:568"),
+    "fused_out_bwd": ("fpsg_torch/csrc/fused_stack.cu",
+                      "fpsg_tpu/nn/fused_stack.py:707"),
 }
 # the path each kernel's launches and times are read from
 TRAIN_KERNELS = ("maxpool2x2", "maxpool2x2_bwd")          # precise_stats
@@ -508,6 +555,191 @@ def check_pool_moments(dtype, gen) -> dict:
     return rows
 
 
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(
+        x.abs().clamp_min(torch.finfo(torch.float32).tiny))) - 7)
+
+
+def _check_k5(name, got, ref, kinds, dtype) -> float:
+    """Each output against the plain one, ``kinds`` per output: "out" (in
+    the activation dtype), "f32" (an f32 output), "sum" (an f32 sum);
+    returns the largest abs error. Relu masks: where the plain gradient
+    is 0, so is the kernel's, and only there."""
+    worst = 0.0
+    for k, (u, v, kind) in enumerate(zip(got, ref, kinds)):
+        if v is None:
+            if u is not None:
+                raise AssertionError(f"{name}: output {k} should be None")
+            continue
+        u, v = u.float(), v.float()
+        err = (u - v).abs()
+        scale = max(v.abs().max().item(), 1e-30)
+        if kind == "sum":
+            bound = STAT_SUM_TOL * scale
+        elif kind == "f32" or dtype == torch.float32:
+            bound = F32_TOL * scale
+        else:
+            bound = _bf16_ulp(v) + F32_TOL * scale
+        if not bool((err <= bound).all()):
+            raise AssertionError(
+                f"{name} {dtype} output {k} ({kind}): max abs err "
+                f"{err.max().item()} of scale {scale}")
+        worst = max(worst, err.max().item())
+    return worst
+
+
+def _masks_agree(name, dyp, ref, yp, k, b) -> int:
+    """The relu mask: the kernel's ``dyp`` is exactly 0 wherever the plain
+    ``pre = k * yp + b`` is not > 0 (ties included), and inside the mask
+    0 only where the plain ``ref`` is within F32_TOL of the scale of 0 (a
+    gradient that cancels can land on an exact 0 in one summation order
+    and not in the other). Returns the count of such zeros."""
+    mask = fs._pre(yp, k, b).float() > 0
+    if bool((dyp[~mask] != 0).any()):
+        raise AssertionError(f"{name}: gradient where the relu is off")
+    zero = mask & (dyp == 0)
+    near = ref.float().abs() <= F32_TOL * ref.float().abs().max()
+    if bool((zero & ~near).any()):
+        raise AssertionError(f"{name}: no gradient inside the relu mask")
+    return int(zero.sum())
+
+
+def check_fused_train(dtype, gen) -> dict:
+    """The decoder's training kernels at the step's shapes: the query pass
+    (B = 1) and the ad pass (B = 32), 16 groups of 128 points a cloud,
+    widths 3 -> 1539 -> 769 -> 384 -> 3. Inputs on a 0.25 grid with k = 1,
+    b = -0.25 on a quarter of the channels force exact relu ties."""
+    def rnd(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    def affine(din):
+        k = 0.5 + torch.rand((C, NN, din), generator=gen, device="cuda")
+        b = rnd(C, NN, din, scale=0.3)
+        k[..., ::4], b[..., ::4] = 1.0, -0.25
+        return k, b
+
+    def rows(r, din):
+        return (rnd(C, NN, r, din, scale=2.0) * 4).round().div(4).to(dtype)
+
+    f32 = torch.float32
+    peak = dtype                             # GEMMs: the dtype's peak
+
+    def row(shape, err, kern, plain, nb, ops, ops_dtype, library=None):
+        bnd, by = bound_ms(nb, ops, ops_dtype)
+        return {"shape": shape, "max_abs_err": err, "bound_ms": bnd,
+                "bound_by": by, "calls": 1, "ms": cuda_ms(kern),
+                "plain_ms": cuda_ms(plain, iters=3),
+                "library_ms": cuda_ms(library) if library else None}
+
+    out = {k: [] for k in K5_TRAIN}
+    g = C * NN
+    for b in DEC_BATCHES:
+        r = b * PPN
+        # layer 1 with statistics, and its backward
+        d, wd = rnd(C, NN, r, 3, dt=dtype).tanh(), \
+            rnd(C, NN, 3, D0, scale=0.3, dt=dtype)
+        yc = rnd(C, NN, b, D0)
+        sc = (yc - yc.mean(dim=2, keepdim=True)).contiguous()
+        got = fs.fused_l1_kernel(d, wd, yc, PPN, sc)
+        # y against the plain y; the sums against the plain sums of the
+        # kernel's own y (a bf16 y one ulp off moves z by that ulp)
+        ycr, scr = (t.repeat_interleave(PPN, dim=2) for t in (yc, sc))
+        z = got[0].float() - ycr
+        err = _check_k5("fused_l1_stats", got,
+                        (fs.fused_l1_plain(d, wd, yc, PPN), z.sum(2),
+                         (z * z).sum(2), (z * scr).sum(2)),
+                        ("out", "sum", "sum", "sum"), dtype)
+        del ycr, scr, z
+        out["fused_l1_stats"].append(row(
+            [C, NN, r, 3, D0], err,
+            lambda: fs.fused_l1_kernel(d, wd, yc, PPN, sc),
+            lambda: fs.fused_l1_plain(d, wd, yc, PPN, sc),
+            nbytes(d, wd, yc, sc, *got), 11 * got[0].numel(), f32))
+        y1 = got[0]
+        gy1 = rnd(C, NN, r, D0, dt=dtype)
+        gz = [rnd(C, NN, D0, scale=0.01) for _ in range(3)]
+        args = (d, wd, yc, sc, y1, gy1, *gz, PPN)
+        got = fs.fused_l1_bwd_kernel(*args)
+        err = _check_k5("fused_l1_bwd", got, fs.fused_l1_bwd_plain(*args),
+                        ("out", "out", "sum", "sum"), dtype)
+        out["fused_l1_bwd"].append(row(
+            [C, NN, r, 3, D0], err, lambda: fs.fused_l1_bwd_kernel(*args),
+            lambda: fs.fused_l1_bwd_plain(*args),
+            nbytes(d, wd, yc, sc, y1, gy1, *gz, *got),
+            4 * 3 * gy1.numel() + 8 * gy1.numel(), f32))
+        del y1, gy1, got, args
+        # mid layers with statistics, dx and dW
+        for din, dout in MID_SHAPES:
+            yp, (k, bb) = rows(r, din), affine(din)
+            w = rnd(C, NN, din, dout, scale=din ** -0.5, dt=dtype)
+            sh = rnd(C, NN, dout, scale=0.1)
+            got = fs.fused_mid_kernel(yp, k, bb, w, sh)
+            z = got[0].float() - sh[:, :, None, :]
+            err = _check_k5("fused_mid_stats", got,
+                            (fs.fused_mid_plain(yp, k, bb, w), z.sum(2),
+                             (z * z).sum(2)), ("out", "sum", "sum"), dtype)
+            del z
+            a3 = fs._affine_relu(yp, k, bb).reshape(g, r, din)
+            w3 = w.reshape(g, din, dout)
+            ops = 2 * g * r * din * dout
+            out["fused_mid_stats"].append(row(
+                [C, NN, r, din, dout], err,
+                lambda: fs.fused_mid_kernel(yp, k, bb, w, sh),
+                lambda: fs.fused_mid_plain(yp, k, bb, w, sh),
+                nbytes(yp, k, bb, w, sh, *got), ops, peak,
+                lambda: torch.bmm(a3, w3)))
+            y = got[0]
+            gy = rnd(C, NN, r, dout, dt=dtype)
+            gzs, gzq = rnd(C, NN, dout, scale=0.01), rnd(C, NN, dout,
+                                                         scale=0.01)
+            args = (yp, k, bb, w, sh, y, gy, gzs, gzq)
+            got = fs.fused_mid_dx_kernel(*args)
+            ref = fs.fused_mid_dx_plain(*args)
+            _masks_agree("fused_mid_dx", got[0], ref[0], yp, k, bb)
+            err = _check_k5("fused_mid_dx", got, ref, ("out", "sum", "sum"),
+                            dtype)
+            g3 = gy.reshape(g, r, dout)
+            out["fused_mid_dx"].append(row(
+                [C, NN, r, din, dout], err,
+                lambda: fs.fused_mid_dx_kernel(*args),
+                lambda: fs.fused_mid_dx_plain(*args),
+                nbytes(*args, *got), ops, peak,
+                lambda: torch.bmm(g3, w3.transpose(1, 2))))
+            dargs = (yp, k, bb, sh, y, gy, gzs, gzq, dtype)
+            got = fs.fused_mid_dw_kernel(*dargs)
+            err = _check_k5("fused_mid_dw", (got,),
+                            (fs.fused_mid_dw_plain(*dargs),), ("out",),
+                            dtype)
+            out["fused_mid_dw"].append(row(
+                [C, NN, r, din, dout], err,
+                lambda: fs.fused_mid_dw_kernel(*dargs),
+                lambda: fs.fused_mid_dw_plain(*dargs),
+                nbytes(*dargs[:-1], got), ops, peak,
+                lambda: torch.bmm(a3.transpose(1, 2), g3)))
+            del yp, y, gy, got, ref, args, dargs, a3, g3
+        # output layer's backward
+        din = MID_SHAPES[-1][1]
+        yp, (k, bb) = rows(r, din), affine(din)
+        w = rnd(C, NN, din, 3, scale=din ** -0.5, dt=dtype)
+        yo = fs.fused_out_kernel(yp, k, bb, w, rnd(C, NN, 3, scale=0.1))
+        gyo = rnd(C, NN, r, 3)
+        args = (yp, k, bb, w, yo, gyo)
+        got = fs.fused_out_bwd_kernel(*args)
+        ref = fs.fused_out_bwd_plain(*args)
+        _masks_agree("fused_out_bwd", got[0], ref[0], yp, k, bb)
+        err = _check_k5("fused_out_bwd", got, ref,
+                        ("out", "sum", "sum", "out", "sum"), dtype)
+        out["fused_out_bwd"].append(row(
+            [C, NN, r, din, 3], err, lambda: fs.fused_out_bwd_kernel(*args),
+            lambda: fs.fused_out_bwd_plain(*args), nbytes(*args, *got),
+            4 * 3 * yp.numel() + 6 * yp.numel(), f32))
+        del yp, yo, gyo, got, ref, args
+        torch.cuda.empty_cache()
+    return out
+
+
 # -- phases 4 and 5: the serving path ----------------------------------------
 
 def serving_inputs(gen):
@@ -583,10 +815,12 @@ def check_stream(server: Generator, imgs, proto) -> float:
 
 KERNEL_GROUPS = (                       # device-time buckets, by name
     ("port kernels", ("maxpool2x2_kernel", "maxpool2x2_bwd_kernel",
-                      "fused_l1_kernel", "fused_mid_kernel",
-                      "fused_out_kernel", "nn_both_kernel",
-                      "segment_sum_kernel", "moments_fwd_kernel",
-                      "moments_sum_kernel", "moments_bwd_kernel")),
+                      "fused_l1_kernel", "mid_fwd_kernel", "mid_dx_kernel",
+                      "mid_dw_kernel", "l1_bwd_kernel", "out_bwd_kernel",
+                      "sum_parts_kernel", "fused_out_kernel",
+                      "nn_both_kernel", "segment_sum_kernel",
+                      "moments_fwd_kernel", "moments_sum_kernel",
+                      "moments_bwd_kernel")),
     # cuDNN's direct, implicit-GEMM, Winograd and FFT convolutions, the
     # complex GEMMs and transforms of its FFT path, its layout transposes
     ("convolutions", ("fprop", "dgrad", "wgrad", "conv", "winograd",
@@ -637,14 +871,19 @@ def profile(fn, name: str) -> dict:
 
 # -- phases 7 to 9: the training step ---------------------------------------
 
-def drive_training(per_step: dict, **conf_kw) -> tuple:
+def drive_training(per_step: dict, fused=None, **conf_kw) -> tuple:
     """The training path at the flagship width: 1 warm and TRAIN_STEPS
-    timed steps, launch counts checked per step against ``per_step``."""
+    timed calls of the step (each ``steps_per_call`` optimizer steps),
+    launch counts checked per optimizer step against ``per_step``.
+    ``fused`` sets the model's ``decoder_fused`` (None: the default)."""
     conf = FPSGConfig(seed=SEED, n_shot=S_TR, n_query=Q_TR,
                       intra_recon=True, **conf_kw)
+    k_steps = max(conf.steps_per_call, 1)
     t0 = time.perf_counter()
     corpus = synthetic_device_corpus(2, 48, NPTS, IMG, seed=SEED)
     state = init_state(conf)
+    if fused is not None:
+        state.model.pc_decoder.fused = fused
     step = make_train_step(conf)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -661,21 +900,23 @@ def drive_training(per_step: dict, **conf_kw) -> tuple:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         after = ops.launch_counts()
         for name, want in per_step.items():
-            if after[name] - before[name] != want:
+            if after[name] - before[name] != want * k_steps:
                 raise AssertionError(
-                    f"train step {i} ({conf_kw}): {name} launched "
-                    f"{after[name] - before[name]} times, expected {want}")
-        metrics.append({k: v.item() for k, v in m.items()})
+                    f"train call {i} ({conf_kw}): {name} launched "
+                    f"{after[name] - before[name]} times, expected "
+                    f"{want} x {k_steps}")
+        metrics.append({k: v.tolist() for k, v in m.items()})
     counts = ops.launch_counts()
     for m in metrics:
-        if not all(np.isfinite(m[k]) for k in ("query_rec_loss",
-                                               "support_rec_loss")):
+        if not all(np.isfinite(m[k]).all() for k in ("query_rec_loss",
+                                                     "support_rec_loss")):
             raise AssertionError(f"non-finite training loss: {m}")
+    median_ms = statistics.median(step_ms[1:]) / k_steps
     return state, corpus, step, gen, {
-        "init_s": init_s, "warm_step_ms": step_ms[0],
-        "step_ms": step_ms[1:],
-        "median_step_ms": statistics.median(step_ms[1:]),
-        "median_host_ms": statistics.median(host_ms[1:]),
+        "init_s": init_s, "steps_per_call": k_steps,
+        "warm_step_ms": step_ms[0], "step_ms": step_ms[1:],
+        "median_step_ms": median_ms, "episodes_per_s": 1e3 / median_ms,
+        "median_host_ms": statistics.median(host_ms[1:]) / k_steps,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "counts": counts, "metrics": metrics}
 
@@ -692,11 +933,13 @@ GRAD_SAMPLE = ("img_encoder.encoder.features_0.weight",
 N_S_RED, NPTS_RED, IMG_RED = 8, 512, 64       # the reduced step's size
 
 
-def reduced_step(device, noise: float = 0.0, **conf_kw) -> tuple:
+def reduced_step(device, noise: float = 0.0, fused=None,
+                 **conf_kw) -> tuple:
     """One step (loss, backward, running-statistics update) at the reduced
     size on ``device``, from the weights of ``SEED`` (times 1 + ``noise`` x
     a fixed normal draw), a fixed episode and fixed template points:
-    (losses, the GRAD_SAMPLE gradients, the state dict), on the CPU."""
+    (losses, the GRAD_SAMPLE gradients, the state dict), on the CPU.
+    ``fused`` sets the decoder's ``decoder_fused`` (None: the default)."""
     conf = FPSGConfig(seed=SEED, n_shot=N_S_RED, n_query=Q_TR,
                       num_pts=NPTS_RED, intra_recon=True, **conf_kw)
     corpus = synthetic_device_corpus(2, 12, NPTS_RED, IMG_RED, seed=SEED,
@@ -711,6 +954,8 @@ def reduced_step(device, noise: float = 0.0, **conf_kw) -> tuple:
                 p.mul_(1 + noise * torch.randn(p.shape, generator=g))
     model = model.to(device)
     dec = model.pc_decoder
+    if fused is not None:
+        dec.fused = fused
     tp = {"query": dec.template_points(
               Q_TR, torch.Generator().manual_seed(SEED + 3)),
           "support": dec.template_points(
@@ -765,15 +1010,19 @@ def _distances(a: tuple, b: tuple) -> dict:
     return out
 
 
-def compare_single_read_with_cpu() -> dict:
+def compare_single_read_with_cpu(cpu_fused="off", card_fused="off"
+                                 ) -> dict:
     """The reduced step with single-read statistics: f32 card vs CPU within
     the TRAIN_*_TOL bounds; bf16 card vs CPU within SR_FACTOR x the CPU
-    path's own bf16 rounding sensitivity."""
-    cpu32 = reduced_step("cpu")
-    cpu16 = reduced_step("cpu", compute_dtype="bf16")
-    cpu16n = reduced_step("cpu", noise=1e-7, compute_dtype="bf16")
-    card32 = reduced_step("cuda")
-    card16 = reduced_step("cuda", compute_dtype="bf16")
+    path's own bf16 rounding sensitivity. The decoder's node chain as
+    ``cpu_fused`` / ``card_fused`` (bench.py's: "on" / None, the card's
+    default)."""
+    cpu32 = reduced_step("cpu", fused=cpu_fused)
+    cpu16 = reduced_step("cpu", fused=cpu_fused, compute_dtype="bf16")
+    cpu16n = reduced_step("cpu", noise=1e-7, fused=cpu_fused,
+                          compute_dtype="bf16")
+    card32 = reduced_step("cuda", fused=card_fused)
+    card16 = reduced_step("cuda", fused=card_fused, compute_dtype="bf16")
     gap, wiggle = _distances(cpu16, cpu32), _distances(cpu16n, cpu16)
     dist = _distances(card16, cpu16)
     ratio = {k: dist[k] / max(gap[k], wiggle[k], 1e-30) for k in dist}
@@ -853,6 +1102,7 @@ def main() -> int:
             "maxpool2x2_bwd": check_pool_bwd(dtype, gpu_gen),
             **check_moments(dtype, gpu_gen),
             **check_pool_moments(dtype, gpu_gen)}
+        train_rows.update(check_fused_train(dtype, gpu_gen))
         if dtype == torch.float32:
             train_rows.update(check_chamfer(gpu_gen))
         detail["train_kernels"][name] = train_rows
@@ -899,7 +1149,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     state, corpus, step, tgen, sr_run = drive_training(
-        PER_STEP_SR, precise_stats=False, compute_dtype="bf16")
+        PER_STEP_SR, fused="off", precise_stats=False, compute_dtype="bf16")
     say("train single-read", **sr_run)
     sr_prof = profile(lambda: step(state, corpus, tgen), "_train_sr")
     say("single-read profile", **sr_prof)
@@ -907,13 +1157,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     sr_plain = compare_single_read_with_cpu()
     say("single-read plain", **sr_plain)
+    torch.cuda.empty_cache()
+
+    state, corpus, step, tgen, bench_run = drive_training(
+        PER_STEP_BENCH, precise_stats=False, compute_dtype="bf16",
+        bf16_moments=True, steps_per_call=BENCH_K)
+    say("train bench", **bench_run)
+    bench_prof = profile(lambda: step(state, corpus, tgen), "_train_bench")
+    say("bench profile", **bench_prof)
+    del state, corpus, step
+    torch.cuda.empty_cache()
+    bench_plain = compare_single_read_with_cpu(cpu_fused="on",
+                                               card_fused=None)
+    say("bench plain", **bench_plain)
 
     # serving kernels at the serving shapes with the serving run's launches;
     # the training paths' kernels at the step's shapes with their runs'
     # launches (the single-read kernels in bf16, the main path's dtype)
     lines = []
     for kernel in SOURCES:
-        if kernel in TRAIN_KERNELS:
+        if kernel in K5_TRAIN:
+            rows = detail["train_kernels"]["bf16"][kernel]
+            launches = bench_run["counts"][kernel]
+        elif kernel in TRAIN_KERNELS:
             rows = detail["train_kernels"]["f32"][kernel]
             launches = train_run["counts"][kernel]
         elif kernel in SR_KERNELS:
@@ -930,7 +1196,9 @@ def main() -> int:
                   build_s=build_s, init_s=init_s, train=train_run,
                   train_profile=train_prof, train_plain=train_plain,
                   train_single_read=sr_run, single_read_profile=sr_prof,
-                  single_read_plain=sr_plain, kernels_line=lines)
+                  single_read_plain=sr_plain, train_bench=bench_run,
+                  bench_profile=bench_prof, bench_plain=bench_plain,
+                  kernels_line=lines)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(json.dumps({"kernels": lines}))
     print(smi)

@@ -11,6 +11,10 @@ Training (``model.train()``):
   decoder runs on [img_q ‖ proto] and, with ``intra_support``, on
   [img_ad ‖ pc_ad]; each reconstruction is the Chamfer distance summed
   over its batch (``metric="cd"``).
+- ``decoder_fused`` (``"auto"``, ``"on"``, ``"off"``) picks the decoder's
+  node chain in training (``protonet.py:115``; see
+  :class:`~fpsg_torch.nn.decoder.PrimitiveDecoder`): ``"auto"`` fuses it
+  on the card with single-read statistics. ``pc_decoder.fused`` holds it.
 - The encoders and the decoder compute in the model's dtype (bf16 in bf16
   mode); their outputs, the prototype, the losses and the Chamfer
   distances are f32. BatchNorm statistics are single-read (``node_bn1``
@@ -79,7 +83,7 @@ class ImgPCProtoNet(nn.Module):
                  metric: str = "cd", intra_support: bool = False,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None,
-                 precise_stats: bool = False):
+                 precise_stats: bool = False, decoder_fused: str = "auto"):
         super().__init__()
         if aggregate != "single":
             raise NotImplementedError(f"aggregate {aggregate!r} is not ported")
@@ -100,7 +104,7 @@ class ImgPCProtoNet(nn.Module):
             d_cond=IMG_FEATURES + PC_FEATURES, ori_dim=ori_dim,
             raw_dim=raw_dim, template_type=template_type,
             activation=activation, dtype=dtype, generator=generator,
-            precise_stats=precise_stats)
+            precise_stats=precise_stats, fused=decoder_fused)
 
     @classmethod
     def from_config(cls, conf: FPSGConfig, device="cuda") -> "ImgPCProtoNet":

@@ -13,11 +13,21 @@ node MLPs, with every cluster and node parameter stacked on leading axes:
   :]``, ``kd = W1[..., d_cond:, :]``, ``y_cond = einsum("be,cnef->cnbf")``;
 - the node chain ``d_node -> d_node -> d_node//2 -> d_node//4 -> raw`` in
   group-major ``(C, Nn, R = B*P, D)`` layout. In eval it runs the three
-  fused kernels of ``nn/fused_stack.py``, each BN as its collapsed eval
-  affine. In training it runs the unfused chain (``decoder.py:300-319``,
-  what the JAX package runs under ``precise_stats`` or
-  ``decoder_fused="off"``): batched matmuls, each BN with its batch
-  statistics over R, relu, and a tanh output; autograd gives the backward;
+  fused layers of ``nn/fused_stack.py``, each BN as its collapsed eval
+  affine. In training, ``fused`` picks the chain (``decoder.py:291-299``):
+  - the fused chain (``decoder.py:321-430``): the same three layers with
+    their output statistics (``with_stats``) and their backward kernels,
+    each BN in stats injection (``BatchNorm.affine_from_stats``): node_bn1
+    from ``zsum``, ``zsq``, ``zcov`` and the two-pass moments of the small
+    ``y_cond`` (the exact two-pass variance), node_bn2/3 from the
+    single-read shifted sums;
+  - the unfused chain (``decoder.py:300-319``): batched matmuls, each BN
+    with its batch statistics over R, relu, and a tanh output; autograd
+    gives the backward.
+  ``"auto"`` takes the fused chain for tensors on the card with
+  single-read statistics (the card's counterpart of the JAX package's "on
+  the TPU"), the unfused one on the CPU and under ``precise_stats``;
+  ``"on"`` and ``"off"`` force one;
 - BatchNorm statistics (``decoder.py:235-243, 280-319``; PARITY.md:124):
   ``node_bn1`` is always two-pass (at B = 1 its channels are nearly
   constant at a large offset, where the single-read form cancels); the
@@ -79,8 +89,10 @@ class PrimitiveDecoder(nn.Module):
                  deformer_width: int = 128,
                  dtype: Optional[torch.dtype] = None,
                  generator: Optional[torch.Generator] = None,
-                 precise_stats: bool = False):
+                 precise_stats: bool = False, fused: str = "auto"):
         super().__init__()
+        if fused not in ("auto", "on", "off"):
+            raise ValueError(f"fused {fused!r}: 'auto', 'on' or 'off'")
         if activation != "relu":
             raise NotImplementedError(
                 f"decoder activation {activation!r} is not ported (the "
@@ -94,6 +106,7 @@ class PrimitiveDecoder(nn.Module):
         self.template_type = template_type
         self.d_cond = d_cond
         self.dtype = dtype
+        self.precise_stats, self.fused = precise_stats, fused
         g = generator
         self.deformer_conv1 = StackedDense((c,), ori_dim, w, g)
         self.deformer_conv2 = StackedDense((c,), w, w, g)
@@ -160,12 +173,19 @@ class PrimitiveDecoder(nn.Module):
         # einsum("be,cnef->cnbf"); a broadcast batched matmul reads kh in
         # place, where einsum would first copy it to (e, c*n*f) layout
         y_cond = torch.matmul(h.to(dt), kh)                    # (C,Nn,B,F)
-        if self.training:
+        if self.training and self.fused_chain(h):
+            out = self._fused_train_chain(dg, kd, y_cond, p, dt)
+        elif self.training:
             out = self._train_chain(dg, kd, y_cond, b, p, dt)
         else:
             out = self._eval_chain(dg, kd, y_cond, p, dt)  # (C,Nn,R,raw)
         out = out.reshape(c, n, b, p, self.raw_dim)
         return out.permute(2, 0, 1, 3, 4).reshape(b, c * n * p, self.raw_dim)
+
+    def fused_chain(self, h: torch.Tensor) -> bool:
+        """Whether training takes the fused node chain for input ``h``."""
+        return self.fused == "on" or (self.fused == "auto" and h.is_cuda
+                                      and not self.precise_stats)
 
     def _train_chain(self, dg, kd, y_cond, b, p, dt):
         """The unfused node chain with batch statistics: ``[y_cond | d] @
@@ -193,5 +213,33 @@ class PrimitiveDecoder(nn.Module):
             conv = getattr(self, f"node_conv{i}")
             y = fused_mid_layer(y, k, bb, conv.weight.to(dt))
             k, bb = getattr(self, f"node_bn{i}").affine(shift=conv.bias)
+        return fused_out_layer(y, k, bb, self.node_conv4.weight.to(dt),
+                               self.node_conv4.bias.float())
+
+    def _fused_train_chain(self, dg, kd, y_cond, p, dt):
+        """The node chain through the fused layers with their output
+        statistics, each BN fed the statistics by injection."""
+        r = dg.shape[2]
+        ycf = y_cond.float()
+        mean_s = ycf.mean(dim=2)                              # (C,Nn,F)
+        sc = ycf - mean_s[:, :, None, :]
+        var_s = (sc * sc).mean(dim=2)
+        y, zs, zq, zc = fused_l1_layer(dg, kd, y_cond, p, sc=sc,
+                                       with_stats=True)
+        mz = zs / r
+        # the exact two-pass variance: within (z), covariance and between
+        # (y_cond) parts (fpsg_tpu/nn/fused_stack.py:36-55)
+        var1 = (zq / r - mz * mz) + 2.0 * zc / r + var_s
+        k, bb = self.node_bn1.affine_from_stats(
+            mz + mean_s, var1, r, shift=self.node_conv1.bias)
+        for i in (2, 3):
+            conv = getattr(self, f"node_conv{i}")
+            bn = getattr(self, f"node_bn{i}")
+            s = bn.stat_shift(conv.bias)
+            y, zs, zq = fused_mid_layer(y, k, bb, conv.weight.to(dt), s=s,
+                                        with_stats=True)
+            mz = zs / r
+            var = torch.clamp_min(zq / r - mz * mz, 0.0)
+            k, bb = bn.affine_from_stats(mz + s, var, r, shift=conv.bias)
         return fused_out_layer(y, k, bb, self.node_conv4.weight.to(dt),
                                self.node_conv4.bias.float())

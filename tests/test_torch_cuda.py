@@ -15,8 +15,13 @@ segment sum within 1e-6 of its scale (the plain version on the card is
 ``index_add_`` with float atomics, summed in a varying order). The
 single-read statistics kernels (K3f/K3b, K4f/K4b): max/min values,
 indices, codes and the backward bitwise; the shifted sums within 1e-6 of
-their scale (another summation order).
+their scale (another summation order). The decoder's training kernels
+(K5a/K5d with statistics, K5b, K5c, K5e, K5g) within 1e-5 (f32) or 2e-2
+(bf16) of each output's scale, and a small fused training decoder's
+gradients on the card within 1e-4 of each leaf's scale of the CPU's.
 """
+
+import copy
 
 import pytest
 import torch
@@ -149,3 +154,88 @@ def test_stat_kernels_match_plain_on_card():
                     rnd(2, 5, 7, c, dtype=dt), got[5])
             assert torch.equal(pm.pool_moments_bwd(*args),
                                pm.pool_moments_bwd_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_fused_training_kernels_match_plain_on_card(dt):
+    """K5a/K5d with statistics and the backward kernels K5b, K5c, K5e, K5g
+    against their plain versions on the card at small ragged shapes (rows
+    and widths not multiples of the tiles), with and without statistics,
+    and a small fused training decoder's gradients against the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    tdt = DTYPES[dt]
+    gen = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dtype).cuda()
+
+    def close(got, ref):
+        got, ref = got.float(), ref.float()
+        scale = ref.abs().max().item()
+        tol = 1e-5 if dt == "f32" else 2e-2
+        assert (got - ref).abs().max().item() <= tol * max(scale, 1e-30)
+
+    c, n, p, b = 2, 3, 40, 3
+    r, d0, d1, d2 = p * b, 150, 139, 67
+    yp, k, bb = rnd(c, n, r, d1, dtype=tdt), rnd(c, n, d1), rnd(c, n, d1)
+    k = k.abs() + 0.5
+    w = rnd(c, n, d1, d2, dtype=tdt, scale=d1 ** -0.5)
+    s, gzs, gzq = rnd(c, n, d2), rnd(c, n, d2), rnd(c, n, d2, scale=0.1)
+    for a, ref in zip(tfs.fused_mid_kernel(yp, k, bb, w, s),
+                      tfs.fused_mid_plain(yp, k, bb, w, s)):
+        close(a, ref)
+    y = tfs.fused_mid_kernel(yp, k, bb, w, s)[0]
+    gy = rnd(c, n, r, d2, dtype=tdt)
+    for st in (True, False):
+        args = (yp, k, bb, w, s if st else None, y, gy,
+                gzs if st else None, gzq if st else None)
+        for a, ref in zip(tfs.fused_mid_dx_kernel(*args),
+                          tfs.fused_mid_dx_plain(*args)):
+            close(a, ref)
+        dargs = (*args[:3], *args[4:], tdt)
+        close(tfs.fused_mid_dw_kernel(*dargs), tfs.fused_mid_dw_plain(*dargs))
+
+    d, wd = rnd(c, n, r, 3, dtype=tdt).tanh(), rnd(c, n, 3, d0, dtype=tdt)
+    yc = rnd(c, n, b, d0)
+    sc = yc - yc.mean(dim=2, keepdim=True)
+    for a, ref in zip(tfs.fused_l1_kernel(d, wd, yc, p, sc),
+                      tfs.fused_l1_plain(d, wd, yc, p, sc)):
+        close(a, ref)
+    y1 = tfs.fused_l1_kernel(d, wd, yc, p, sc)[0]
+    gy1 = rnd(c, n, r, d0, dtype=tdt)
+    g3 = [rnd(c, n, d0, scale=0.1) for _ in range(3)]
+    for st in (True, False):
+        args = (d, wd, yc, sc if st else None, y1, gy1,
+                *(g3 if st else (None,) * 3), p)
+        for a, ref in zip(tfs.fused_l1_bwd_kernel(*args),
+                          tfs.fused_l1_bwd_plain(*args)):
+            if ref is None:
+                assert a is None
+            else:
+                close(a, ref)
+
+    w4, bias = rnd(c, n, d1, 3, dtype=tdt, scale=0.1), rnd(c, n, 3)
+    yo = tfs.fused_out_kernel(yp, k, bb, w4, bias)
+    gyo = rnd(c, n, r, 3)
+    for a, ref in zip(tfs.fused_out_bwd_kernel(yp, k, bb, w4, yo, gyo),
+                      tfs.fused_out_bwd_plain(yp, k, bb, w4, yo, gyo)):
+        close(a, ref)
+
+    if dt == "f32":
+        from fpsg_torch.nn.decoder import PrimitiveDecoder
+
+        dec = PrimitiveDecoder(num_clusters=2, num_nodes=2, num_points=64,
+                               bottleneck_size=64, d_cond=64, fused="on",
+                               generator=torch.Generator().manual_seed(0))
+        h = torch.randn((3, 64), generator=gen)
+        tp = dec.template_points(3, torch.Generator().manual_seed(1))
+        grads = []
+        for dev in ("cpu", "cuda"):
+            twin = copy.deepcopy(dec).to(dev).train()
+            twin(h.to(dev), tp.to(dev)).square().mean().backward()
+            grads.append({nm: q.grad.cpu() for nm, q in
+                          twin.named_parameters() if q.grad is not None})
+        for nm, g in grads[0].items():
+            assert (grads[1][nm] - g).abs().max() <= 1e-4 * g.abs().max(), nm

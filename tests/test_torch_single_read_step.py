@@ -32,6 +32,30 @@ plain versions of its kernels.
   1.35, ``node_bn2.running_mean``). The port's own bf16-vs-f32 gap is at
   most 0.46 of the JAX package's on the losses.
 
+``bench.py``'s configuration (the decoder's fused node chain, bf16 Adam
+moments, ``steps_per_call``) comes from the same JAX runs: the JAX
+package's fused and unfused chains are equal by its own
+``tests/test_fused_decoder.py``, and a JAX step with the fused chain in
+interpret mode would cost another compile. In bf16 the fused chain rounds
+at other points than the unfused one (it adds the conditioning in f32
+before one rounding, and applies each BatchNorm as an affine in the next
+layer's prologue), and the port's fused bf16 decoder gives JAX's fused
+bf16 output within 1e-5 of its scale (``tests/test_torch_fused_train.py``).
+So, as ``test_fused_bf16_close`` holds JAX's fused chain, each fused
+quantity is held to its distance from the JAX f32 step: within twice the
+JAX bf16 step's own distance from it (the gap above).
+
+- the port's bf16 model with ``decoder_fused="on"`` on the episode above:
+  the losses, every gradient leaf and the running statistics (measured at
+  most 1.61 of the gap, ``deformer_conv3.bias``; its distance to JAX's
+  unfused bf16 step is 2.12 of the gap there);
+- ``make_train_step`` with ``decoder_fused="on"``, ``bf16_moments`` and
+  ``steps_per_call=2`` from the same weights: the first step's losses on
+  its episode and template points (replayed from the step's generator)
+  against JAX's f32 losses there, within twice JAX's bf16-vs-f32 gap on
+  that episode (measured at most 0.52 of it); both steps' metrics stacked
+  (2,) and finite.
+
 Then the entry points ``init_state`` / ``make_train_step`` in bf16 on the
 CPU.
 """
@@ -45,10 +69,12 @@ import torch
 import fpsg_tpu.nn.pointnet as jpn
 import fpsg_tpu.nn.vgg as jvgg
 from fpsg_torch.config import FPSGConfig
+from fpsg_torch.data.corpus import sample_episode
 from fpsg_torch.data.synthetic import synthetic_device_corpus
 from fpsg_torch.io.bridge import state_dict_from_jax
 from fpsg_torch.models import build_model
 from fpsg_torch.train import init_state, make_train_step
+from fpsg_torch.train.optim import CompactAdam
 from fpsg_tpu.models import ImgPCProtoNet as JaxNet
 from test_torch_train_modules import _perturb, grads_close, stats_close
 
@@ -66,10 +92,37 @@ def _conf(dt, **kw):
                       intra_recon=True, compute_dtype=dt, **kw)
 
 
+def _bench_step(v):
+    """Two optimizer steps in one call of ``make_train_step`` at
+    ``bench.py``'s configuration (fused chain, bf16 moments,
+    ``steps_per_call=2``) from the weights ``v``; the first step's episode
+    and template points, replayed from the generator."""
+    conf = _conf("bf16", bf16_moments=True, steps_per_call=2)
+    corpus = synthetic_device_corpus(2, 5, NPTS, IMG, device="cpu")
+    state = init_state(conf, device="cpu")
+    state.model.load_state_dict(state_dict_from_jax(v))
+    state.model.pc_decoder.fused = "on"
+    gen = torch.Generator().manual_seed(11)
+    start = gen.get_state()
+    state, metrics = make_train_step(conf)(state, corpus, gen)
+    gen.set_state(start)
+    batch = sample_episode(corpus, S, Q, gen)
+    dec = state.model.pc_decoder
+    tp = {"query": dec.template_points(Q, gen).numpy(),
+          "support": dec.template_points(S, gen).numpy()}
+    sample = {k: batch[k].numpy() for k in ("xq", "xad", "pcs", "pcq",
+                                            "pcad")}
+    sample["xs"] = np.zeros((S, IMG, IMG, 3), np.float32)
+    return state, metrics, sample, tp
+
+
 @pytest.fixture(scope="module")
 def runs():
     """For "f32" and "bf16": the JAX step's (losses, gradient state dict,
-    running statistics) and the port's (losses, model after backward)."""
+    running statistics) and the port's (losses, model after backward);
+    for "bf16" also the port's with the fused decoder chain; for "bench"
+    the port's two steps at bench.py's configuration and JAX's losses on
+    the first one's episode in f32 and bf16."""
     torch.set_num_threads(1)
     rng = np.random.default_rng(7)
     f32 = lambda *s: rng.standard_normal(s).astype(np.float32)
@@ -79,7 +132,7 @@ def runs():
     tp = {"query": rng.uniform(0, 1, (Q, C, NN, PPN, 2)).astype(np.float32),
           "support": rng.uniform(0, 1, (S, C, NN, PPN, 2)).astype(
               np.float32)}
-    out = {}
+    out = {"bench": {}}
     v = None
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jpn, "_FORCE_MOMENTS_KERNEL", True)
@@ -95,9 +148,10 @@ def runs():
                                             sample, True))(
                     jax.random.PRNGKey(0), jax.random.PRNGKey(1)))
                 v["batch_stats"] = _perturb(v, rng)["batch_stats"]
+                out["bench"]["port"] = _bench_step(v)
 
             @jax.jit
-            def loss_and_grads(variables):
+            def loss_and_grads(variables, sample, tp):
                 def f(params):
                     o, mut = net.apply(
                         {"params": params,
@@ -110,17 +164,26 @@ def runs():
                     variables["params"])
                 return o, g, st
 
-            o, g, st = jax.device_get(loss_and_grads(v))
-            model = build_model(_conf(dt))
-            model.load_state_dict(state_dict_from_jax(v))
-            model.train()
-            got = model.loss({k: torch.from_numpy(a)
-                              for k, a in sample.items()},
-                             {k: torch.from_numpy(a) for k, a in tp.items()})
-            got["ttl_loss"].backward()
-            out[dt] = {"jax": ({k: float(o[k]) for k in LOSSES}, g, st),
-                       "port": ({k: float(got[k].detach()) for k in LOSSES},
-                                model)}
+            o, g, st = jax.device_get(loss_and_grads(v, sample, tp))
+            _, bench_sample, bench_tp = out["bench"]["port"][1:]
+            ob = jax.device_get(loss_and_grads(v, bench_sample,
+                                               bench_tp)[0])
+            out["bench"][dt] = {k: float(ob[k]) for k in LOSSES}
+            out[dt] = {"jax": ({k: float(o[k]) for k in LOSSES}, g, st)}
+            for name, fused in (("port", "off"), ("port_fused", "on")):
+                if dt == "f32" and fused == "on":
+                    continue
+                model = build_model(_conf(dt))
+                model.load_state_dict(state_dict_from_jax(v))
+                model.pc_decoder.fused = fused
+                model.train()
+                got = model.loss({k: torch.from_numpy(a)
+                                  for k, a in sample.items()},
+                                 {k: torch.from_numpy(a)
+                                  for k, a in tp.items()})
+                got["ttl_loss"].backward()
+                out[dt][name] = ({k: float(got[k].detach()) for k in LOSSES},
+                                 model)
     return out
 
 
@@ -150,27 +213,60 @@ def _frob(a, b):
 def test_single_read_bf16_step_matches_jax(runs):
     """Each quantity within BF16_FACTOR x the JAX package's own
     bf16-vs-f32 gap (module docstring)."""
-    jl = {dt: runs[dt]["jax"][0] for dt in runs}
-    pl = runs["bf16"]["port"][0]
+    _check_bf16(runs, "port")
+
+
+def test_fused_decoder_bf16_step_matches_jax(runs):
+    """The same with the decoder's fused node chain (bench.py's), each
+    quantity's distance from the JAX f32 step within BF16_FACTOR x the
+    JAX bf16 step's (module docstring)."""
+    _check_bf16(runs, "port_fused", "f32")
+
+
+def _check_bf16(runs, port, ref="bf16"):
+    """The port's bf16 step against JAX's ``ref`` step, each quantity
+    within BF16_FACTOR x JAX's bf16-vs-f32 gap."""
+    dts = ("f32", "bf16")
+    jl = {dt: runs[dt]["jax"][0] for dt in dts}
+    pl = runs["bf16"][port][0]
     for key in LOSSES:
         rel = lambda a, b: abs(a - b) / abs(b)
         gap = rel(jl["bf16"][key], jl["f32"][key])
-        assert rel(pl[key], jl["bf16"][key]) <= BF16_FACTOR * gap, key
+        assert rel(pl[key], jl[ref][key]) <= BF16_FACTOR * gap, key
 
     jg = {dt: state_dict_from_jax({"params": runs[dt]["jax"][1]})
-          for dt in runs}
-    pg = _port_grads(runs["bf16"]["port"][1])
+          for dt in dts}
+    model = runs["bf16"][port][1]
+    assert model.pc_decoder.fused_chain(torch.zeros(1)) == (
+        port == "port_fused")
+    pg = _port_grads(model)
     assert pg.keys() == _port_grads(runs["f32"]["port"][1]).keys()
     for name, g in pg.items():
         gap = _frob(jg["bf16"][name], jg["f32"][name])
-        assert _frob(g, jg["bf16"][name]) <= BF16_FACTOR * gap, name
+        assert _frob(g, jg[ref][name]) <= BF16_FACTOR * gap, name
 
     js = {dt: state_dict_from_jax({"batch_stats": runs[dt]["jax"][2]})
-          for dt in runs}
-    for name, t in _stats(runs["bf16"]["port"][1]).items():
+          for dt in dts}
+    for name, t in _stats(model).items():
         gap = float((js["bf16"][name] - js["f32"][name]).abs().max())
-        err = float((t - js["bf16"][name]).abs().max())
+        err = float((t - js[ref][name]).abs().max())
         assert err <= BF16_FACTOR * gap, name
+
+
+def test_bench_config_step_matches_jax(runs):
+    """``make_train_step`` at bench.py's configuration: the first of two
+    steps in one call against JAX on the same episode (module
+    docstring)."""
+    state, metrics = runs["bench"]["port"][:2]
+    assert isinstance(state.optimizer, CompactAdam) and state.step == 2
+    assert all(st["exp_avg"].dtype == torch.bfloat16
+               for st in state.optimizer.state.values())
+    for key in ("query_rec_loss", "support_rec_loss"):
+        got = metrics[key]
+        assert got.shape == (2,) and torch.isfinite(got).all(), key
+        jb, jf = runs["bench"]["bf16"][key], runs["bench"]["f32"][key]
+        gap = abs(jb - jf) / abs(jf)
+        assert abs(float(got[0]) - jf) / abs(jf) <= BF16_FACTOR * gap, key
 
 
 def test_bf16_train_step_on_the_cpu():

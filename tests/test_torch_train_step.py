@@ -198,10 +198,12 @@ def test_train_step_on_the_cpu():
 
 
 def test_unported_training_modes_raise():
-    for kw in ({"episodes_per_step": 2}, {"steps_per_call": 2},
-               {"bf16_moments": True}, {"dp": 2}, {"mp": 2}):
+    """E > 1 and a device mesh raise, naming the slice that brings them;
+    ``steps_per_call`` and ``bf16_moments`` are ported."""
+    for kw in ({"episodes_per_step": 2}, {"dp": 2}, {"mp": 2}):
         conf = FPSGConfig(**{"precise_stats": True, **kw})
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match="slice 9"):
             make_train_step(conf)
+    make_train_step(FPSGConfig(steps_per_call=2, bf16_moments=True))
     with pytest.raises(ValueError):
         make_train_step(FPSGConfig(compute_dtype="f16"))
