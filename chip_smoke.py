@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and training step on one NVIDIA
-card.
+"""Drive the PyTorch port's serving path, training steps and evaluator on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -33,6 +33,16 @@ Phases (one line each; any failure exits non-zero):
    ``max_pool2d_with_indices_backward``, ``index_add_``; ``torch.bmm`` of
    the mid layers' product alone: forward, dx and dW on the already
    activated or adjusted operands; none for K3, K4, K5d, K5e, K5g).
+   The Sinkhorn solves (unit-ball clouds of 2048 points): K6 at the
+   evaluator's settings at B = 1 and B = 16 (four easy pairs in the 16,
+   so that clouds exit at different iterations), at the emd training
+   loss's at B = 1 and 32, and at tol = 0; K11 at B = 2 on the warm start
+   of ``coarse = 256``: potentials within ``SINKHORN_POT_TOL`` of their
+   scale, values within ``SINKHORN_RTOL`` / ``SINKHORN_ATOL``, per-cloud
+   iteration counts within ``SINKHORN_ITERS_TOL``; bound: the solve's
+   exponentials at the ex2 rate (16 a clock per SM at the maximum SM
+   clock). Then the multiscale path, ``sinkhorn_emd(coarse=256)``, with
+   counts reset just before: K6 once, K11 once.
 4. serve: ``Generator`` at the flagship width (VGG16-bn at 224x224,
    PointNet over 32 support clouds of 2048 points, 4x4 decoder, 2048
    points, random weights from a seed, f32): ``prototype`` once, then 5
@@ -81,7 +91,24 @@ Phases (one line each; any failure exits non-zero):
 14. bench profile: one more call under ``torch.profiler``.
 15. bench plain: phase 12 with the fused chain on both sides (the CPU's
    forced ``"on"``).
-16. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+16. eval: the evaluator at ``benchmarks/eval_bench.py:34-45``'s
+   configuration (1-way 32-shot, Q = 1, ``intra_support``, 224x224
+   images, 2048 points, bf16, random weights from a seed) on the synthetic
+   corpus: 1 warm and ``EVAL_CALLS`` timed calls of ``episodic_eval`` (32
+   episodes in chunks of 16) with EMD and without; per chunk K6 once, K1
+   once, the serving kernels once, no training kernel
+   (``PER_CHUNK_EVAL``; without EMD the loss's two decoder passes and two
+   Chamfer distances). Episodes/s, the per-class lines of ``evaluate``,
+   16 items of ``run_sequential``; running statistics unchanged.
+17. eval profile: one chunk with EMD under ``torch.profiler``, the EMD's
+   share of the call; one chunk without EMD.
+18. eval plain: ``reconstruct`` at the reduced size on the card and on
+   the CPU: CD and clouds within ``PATH_TOL``, EMD within the K6 bound.
+19. train emd: phase 13 with ``pc_dist="emd"``: per optimizer step K6
+   twice (B = 1 and 32), no K1 or K2 (``PER_STEP_EMD``).
+20. emd profile: one more call under ``torch.profiler``.
+21. emd plain: phase 15 with ``pc_dist="emd"``.
+22. the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``, the profiles' per-kernel
@@ -91,6 +118,7 @@ device times to ``chiprun_out/chip_smoke_profile*.txt`` and the compiler's
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -104,11 +132,12 @@ import torch.nn.functional as F
 
 from fpsg_torch import ops
 from fpsg_torch.config import FPSGConfig
-from fpsg_torch.data.corpus import sample_episode
+from fpsg_torch.data.corpus import sample_episode, sample_episode_batch
 from fpsg_torch.data.synthetic import synthetic_device_corpus
-from fpsg_torch.models import build_model
+from fpsg_torch.models import ImgPCProtoNet, build_model
 from fpsg_torch.nn import fused_stack as fs
 from fpsg_torch.ops import _build
+from fpsg_torch.ops import emd
 from fpsg_torch.ops.chamfer import nn_both, nn_both_plain
 from fpsg_torch.ops.moments import (
     moments_bwd, moments_bwd_plain, moments_fwd, moments_fwd_plain,
@@ -122,7 +151,10 @@ from fpsg_torch.ops.pool_moments import (
 )
 from fpsg_torch.ops.scatter import segment_sum, segment_sum_plain
 from fpsg_torch.serve import Generator
-from fpsg_torch.train import init_model, init_state, make_train_step
+from fpsg_torch.train import (
+    episodic_eval, evaluate, init_model, init_state, make_eval_step,
+    make_train_step, run_sequential,
+)
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 SEED = 0
@@ -134,7 +166,8 @@ R = Q * (NPTS // C // NN)                  # rows per (cluster, node)
 MID_SHAPES = [(D0, D0 // 2), (D0 // 2, D0 // 4)]   # 1539->769, 769->384
 PER_CALL = {"maxpool2x2": 5, "fused_l1": 1, "fused_mid": 2, "fused_out": 1,
             "fused_l1_stats": 0, "fused_mid_stats": 0, "fused_mid_dx": 0,
-            "fused_mid_dw": 0, "fused_l1_bwd": 0, "fused_out_bwd": 0}
+            "fused_mid_dw": 0, "fused_l1_bwd": 0, "fused_out_bwd": 0,
+            "sinkhorn": 0, "sinkhorn_warm": 0}
 # training: 32 support + 32 ad clouds, 32 ad + 1 query images
 S_TR, Q_TR, TRAIN_STEPS = 32, 1, 5
 B_IMG = S_TR + Q_TR
@@ -148,7 +181,8 @@ K5_TRAIN = ("fused_l1_stats", "fused_mid_stats", "fused_mid_dx",
             "fused_mid_dw", "fused_l1_bwd", "fused_out_bwd")
 PER_STEP = {"maxpool2x2": 5, "maxpool2x2_bwd": 5, "chamfer_nn": 2,
             "segment_sum": 4, "fused_l1": 0, "fused_mid": 0, "fused_out": 0,
-            **{k: 0 for k in STAT_KERNELS}, **{k: 0 for k in K5_TRAIN}}
+            **{k: 0 for k in STAT_KERNELS}, **{k: 0 for k in K5_TRAIN},
+            "sinkhorn": 0, "sinkhorn_warm": 0}
 # single-read statistics (bench.py's configuration): K3 at the two PointNet
 # BN -> max sites, K4 at the five VGG BN -> pool sites, no K7
 PER_STEP_SR = {**PER_STEP, "maxpool2x2": 0, "maxpool2x2_bwd": 0,
@@ -160,6 +194,35 @@ PER_STEP_BENCH = {**PER_STEP_SR, "fused_l1_stats": 2, "fused_mid_stats": 4,
                   "fused_out": 2, "fused_out_bwd": 2, "fused_mid_dx": 4,
                   "fused_mid_dw": 4, "fused_l1_bwd": 2}
 BENCH_K = 8                                 # bench.py --steps-per-call
+# --pc_dist emd in bench.py's configuration: per optimizer step one
+# Sinkhorn solve per decoder pass (B = 1 and B = 32) instead of K1 and K2
+PER_STEP_EMD = {**PER_STEP_BENCH, "chamfer_nn": 0, "segment_sum": 0,
+                "sinkhorn": 2, "sinkhorn_warm": 0}
+# the evaluator (reconstruct, eval mode): per chunk of episodes one VGG
+# pass (5 pools), the decoder's eval kernels once, K1 once and K6 once;
+# no training kernel. Without EMD (the loss in eval mode): two decoder
+# passes and two Chamfer distances, no K6.
+NO_TRAIN = {k: 0 for k in ("maxpool2x2_bwd", "segment_sum", *STAT_KERNELS,
+                           *K5_TRAIN, "sinkhorn_warm")}
+PER_CHUNK_EVAL = {**NO_TRAIN, "maxpool2x2": 5, "fused_l1": 1, "fused_mid": 2,
+                  "fused_out": 1, "chamfer_nn": 1, "sinkhorn": 1}
+PER_CHUNK_EVAL_NO_EMD = {**PER_CHUNK_EVAL, "fused_l1": 2, "fused_mid": 4,
+                         "fused_out": 2, "chamfer_nn": 2, "sinkhorn": 0}
+# eval: benchmarks/eval_bench.py:34-45 (1-way 32-shot, Q = 1, bf16), 32
+# episodes a call in chunks of 16, 16 items of the sequential pass
+EVAL_EPISODES, EVAL_CHUNK, EVAL_CALLS, SEQ_ITEMS = 32, 16, 3, 16
+# Sinkhorn (K6/K11) against its plain version: values within the JAX
+# package's own pallas-vs-oracle bound (tests/test_ops_emd.py:77-82);
+# potentials within SINKHORN_POT_TOL of their scale (exp2f and another
+# summation order than the plain version's exp); per-cloud iteration
+# counts within SINKHORN_ITERS_TOL (a delta near tol can cross it an
+# iteration earlier or later)
+SINKHORN_RTOL, SINKHORN_ATOL = 1e-3, 1e-5
+SINKHORN_POT_TOL, SINKHORN_ITERS_TOL = 1e-4, 2
+EVAL_DEFAULTS = dict(eps=2e-4, n_iters=360, anneal_frac=0.5, eps0=0.1,
+                     tol=emd.DEFAULT_TOL, omega=emd.DEFAULT_OMEGA)
+TRAIN_EMD = dict(EVAL_DEFAULTS, eps=0.01, n_iters=100)   # protonet._pc_dist
+MUFU_EX2_PER_CLOCK_SM, SMS = 16, 132       # H100 SXM: ex2 a clock per SM
 PPN = NPTS // C // NN                      # points per node: 128
 DEC_BATCHES = (Q_TR, S_TR)                 # the query and the ad pass
 MOMENTS_SHAPE = (2 * S_TR, NPTS, 1024)     # [support ‖ ad] clouds, conv3
@@ -235,6 +298,9 @@ SOURCES = {
                      "fpsg_tpu/nn/fused_stack.py:568"),
     "fused_out_bwd": ("fpsg_torch/csrc/fused_stack.cu",
                       "fpsg_tpu/nn/fused_stack.py:707"),
+    "sinkhorn": ("fpsg_torch/csrc/sinkhorn.cu", "fpsg_tpu/ops/emd.py:241"),
+    "sinkhorn_warm": ("fpsg_torch/csrc/sinkhorn.cu",
+                      "fpsg_tpu/ops/emd.py:309"),
 }
 # the path each kernel's launches and times are read from
 TRAIN_KERNELS = ("maxpool2x2", "maxpool2x2_bwd")          # precise_stats
@@ -740,6 +806,108 @@ def check_fused_train(dtype, gen) -> dict:
     return out
 
 
+def _unit_clouds(b, n, gen):
+    """(b, n, 3) gaussian clouds scaled into the unit ball, on the card."""
+    p = torch.randn((b, n, 3), generator=gen, device="cuda")
+    return p / p.norm(dim=-1).amax(dim=-1)[:, None, None]
+
+
+def sinkhorn_bound(iters: torch.Tensor, n: int, m: int, clock_hz: float
+                   ) -> tuple:
+    """Least time of a solve: its exponentials (2 N M a cloud for each
+    iteration the cloud ran, counted from the run) at the SMs' ex2 rate,
+    or its bytes (points in, potentials out) at HBM rate."""
+    b = iters.numel()
+    t_ops = 2.0 * n * m * float(iters.sum()) / (
+        MUFU_EX2_PER_CLOCK_SM * SMS * clock_hz) * 1e3
+    t_bytes = 4.0 * b * (n + m) * 4 / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def sinkhorn_case(name, x, y, kw, clock_hz, g0=None) -> dict:
+    """K6 (K11 with ``g0``) against its plain version on the same inputs:
+    potentials, values and per-cloud iteration counts; times by CUDA
+    events."""
+    kw = dict(kw, g0=g0)
+    got = emd.sinkhorn_potentials(x, y, **kw)
+    ref = emd.sinkhorn_potentials_plain(x, y, **kw)
+    torch.cuda.synchronize()
+    scale = max(ref[0].abs().max().item(), ref[1].abs().max().item())
+    pot_err = max((got[k] - ref[k]).abs().max().item() for k in (0, 1))
+    c = emd.pairwise_sqdist(x, y)
+    vk = emd.transport_cost(c, got[0], got[1], kw["eps"])
+    vp = emd.transport_cost(c, ref[0], ref[1], kw["eps"])
+    del c
+    val_err = (vk - vp).abs()
+    iters_diff = int((got[2] - ref[2]).abs().max())
+    row = {"case": name, "shape": [x.shape[0], x.shape[1], y.shape[1]],
+           "iters": got[2].tolist(), "plain_iters": ref[2].tolist(),
+           "max_abs_err": pot_err, "pot_scale": scale,
+           "value_max_rel_err": (val_err / vp.abs()).max().item(),
+           "value_max_abs_err": val_err.max().item()}
+    if not (pot_err <= SINKHORN_POT_TOL * scale
+            and bool((val_err <= SINKHORN_ATOL + SINKHORN_RTOL * vp.abs())
+                     .all()) and iters_diff <= SINKHORN_ITERS_TOL):
+        raise AssertionError(f"sinkhorn {name}: kernel vs plain out of "
+                             f"bounds: {row}")
+    row["bound_ms"], row["bound_by"] = sinkhorn_bound(
+        got[2], x.shape[1], y.shape[1], clock_hz)
+    row["ms"] = cuda_ms(lambda: emd.sinkhorn_potentials(x, y, **kw),
+                        iters=3, repeats=3)
+    row["plain_ms"] = cuda_ms(
+        lambda: emd.sinkhorn_potentials_plain(x, y, **kw), iters=1,
+        repeats=3)
+    row["library_ms"] = None        # no PyTorch call computes potentials
+    row["calls"] = 1
+    return row
+
+
+def check_sinkhorn(gen, clock_hz) -> dict:
+    """K6 at the evaluator's shapes (B = 1 and a chunk of 16 clouds, 2048
+    points, eps 2e-4, 360 iterations; the chunk mixes four easy pairs, y =
+    x + noise of four sizes, with hard ones so that clouds exit at
+    different iterations), at the emd training loss's (B = 1 and 32, eps
+    0.01, 100 iterations) and at tol = 0 (80 iterations at eps 0.01); K11
+    at B = 2 with the warm start of ``coarse = 256``. Then the multiscale
+    path through ``sinkhorn_emd(coarse=256)``, counts reset just before
+    and read just after."""
+    rows = {"sinkhorn": [], "sinkhorn_warm": []}
+    x, y = _unit_clouds(16, NPTS, gen), _unit_clouds(16, NPTS, gen)
+    for i, noise in enumerate((0.003, 0.01, 0.03, 0.1)):
+        y[i] = x[i] + noise * torch.randn((NPTS, 3), generator=gen,
+                                          device="cuda")
+    rows["sinkhorn"].append(sinkhorn_case("eval B=16", x, y, EVAL_DEFAULTS,
+                                          clock_hz))
+    if len(set(rows["sinkhorn"][-1]["iters"])) < 2:
+        raise AssertionError("sinkhorn: the mixed batch's clouds all ran "
+                             "the same iterations")
+    rows["sinkhorn"].append(sinkhorn_case("eval B=1", x[4:5], y[4:5],
+                                          EVAL_DEFAULTS, clock_hz))
+    for b in (Q_TR, S_TR):
+        xt, yt = _unit_clouds(b, NPTS, gen), _unit_clouds(b, NPTS, gen)
+        rows["sinkhorn"].append(sinkhorn_case(f"train B={b}", xt, yt,
+                                              TRAIN_EMD, clock_hz))
+    rows["sinkhorn"].append(sinkhorn_case(
+        "tol=0 B=4", x[:4], y[4:8], dict(TRAIN_EMD, n_iters=80, tol=0.0),
+        clock_hz))
+    xw, yw = _unit_clouds(2, NPTS, gen), _unit_clouds(2, NPTS, gen)
+    g0 = emd.coarse_warm_start(xw, yw, 256, eps=0.01, n_iters=360,
+                               anneal_frac=0.5, eps0=0.1,
+                               tol=emd.DEFAULT_TOL, omega=emd.DEFAULT_OMEGA)
+    rows["sinkhorn_warm"].append(sinkhorn_case(
+        "warm B=2 coarse=256", xw, yw,
+        dict(EVAL_DEFAULTS, eps0=0.01, anneal_frac=0.4), clock_hz, g0=g0))
+    ops.reset_launch_counts()
+    value = emd.sinkhorn_emd(xw, yw, coarse=256)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["sinkhorn"] != 1 or counts["sinkhorn_warm"] != 1 \
+            or not bool(torch.isfinite(value).all()):
+        raise AssertionError(f"multiscale path: launches {counts}, value "
+                             f"{value.tolist()}")
+    return rows, {"counts": counts, "values": value.tolist()}
+
+
 # -- phases 4 and 5: the serving path ----------------------------------------
 
 def serving_inputs(gen):
@@ -814,6 +982,7 @@ def check_stream(server: Generator, imgs, proto) -> float:
 
 
 KERNEL_GROUPS = (                       # device-time buckets, by name
+    ("sinkhorn (K6/K11)", ("half_iter_kernel",)),
     ("port kernels", ("maxpool2x2_kernel", "maxpool2x2_bwd_kernel",
                       "fused_l1_kernel", "mid_fwd_kernel", "mid_dx_kernel",
                       "mid_dw_kernel", "l1_bwd_kernel", "out_bwd_kernel",
@@ -1010,19 +1179,21 @@ def _distances(a: tuple, b: tuple) -> dict:
     return out
 
 
-def compare_single_read_with_cpu(cpu_fused="off", card_fused="off"
-                                 ) -> dict:
+def compare_single_read_with_cpu(cpu_fused="off", card_fused="off",
+                                 **conf_kw) -> dict:
     """The reduced step with single-read statistics: f32 card vs CPU within
     the TRAIN_*_TOL bounds; bf16 card vs CPU within SR_FACTOR x the CPU
     path's own bf16 rounding sensitivity. The decoder's node chain as
     ``cpu_fused`` / ``card_fused`` (bench.py's: "on" / None, the card's
-    default)."""
-    cpu32 = reduced_step("cpu", fused=cpu_fused)
-    cpu16 = reduced_step("cpu", fused=cpu_fused, compute_dtype="bf16")
+    default); ``conf_kw`` goes to the configuration (``pc_dist``)."""
+    cpu32 = reduced_step("cpu", fused=cpu_fused, **conf_kw)
+    cpu16 = reduced_step("cpu", fused=cpu_fused, compute_dtype="bf16",
+                         **conf_kw)
     cpu16n = reduced_step("cpu", noise=1e-7, fused=cpu_fused,
-                          compute_dtype="bf16")
-    card32 = reduced_step("cuda", fused=card_fused)
-    card16 = reduced_step("cuda", fused=card_fused, compute_dtype="bf16")
+                          compute_dtype="bf16", **conf_kw)
+    card32 = reduced_step("cuda", fused=card_fused, **conf_kw)
+    card16 = reduced_step("cuda", fused=card_fused, compute_dtype="bf16",
+                          **conf_kw)
     gap, wiggle = _distances(cpu16, cpu32), _distances(cpu16n, cpu16)
     dist = _distances(card16, cpu16)
     ratio = {k: dist[k] / max(gap[k], wiggle[k], 1e-30) for k in dist}
@@ -1043,6 +1214,132 @@ def compare_single_read_with_cpu(cpu_fused="off", card_fused="off"
     if f32_bad or bad:
         raise AssertionError(f"single-read step, card vs CPU, out of bounds: "
                              f"f32 {f32_bad[:8]}, bf16 {bad[:8]} ({res})")
+    return res
+
+
+# -- phases 16 to 18: the evaluator -----------------------------------------
+
+def drive_eval() -> tuple:
+    """The evaluator at the flagship width (benchmarks/eval_bench.py:34-45:
+    1-way 32-shot, Q = 1, ``intra_support``, bf16, random weights from
+    SEED) on a synthetic corpus of 2 classes x 48 items made on the card:
+    1 warm and EVAL_CALLS timed calls of ``episodic_eval`` (EVAL_EPISODES
+    episodes in chunks of EVAL_CHUNK) with EMD and without, launch counts
+    checked per chunk; the per-class lines of ``evaluate``; SEQ_ITEMS items
+    of ``run_sequential``. The running statistics must not move."""
+    conf = FPSGConfig(seed=SEED, n_shot=S_TR, n_query=Q_TR, intra_recon=True,
+                      compute_dtype="bf16", eval_episodes=EVAL_EPISODES,
+                      eval_chunk=EVAL_CHUNK)
+    t0 = time.perf_counter()
+    corpus = synthetic_device_corpus(2, 48, NPTS, IMG, seed=SEED)
+    model = ImgPCProtoNet.from_config(conf)
+    torch.cuda.synchronize()
+    res = {"init_s": time.perf_counter() - t0}
+    stats0 = {k: v.clone() for k, v in model.state_dict().items()
+              if "running_" in k}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    n_chunks = EVAL_EPISODES // EVAL_CHUNK
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for with_emd, per_chunk in ((True, PER_CHUNK_EVAL),
+                                (False, PER_CHUNK_EVAL_NO_EMD)):
+        step = make_eval_step(model, S_TR, Q_TR, with_emd=with_emd)
+        call_ms, outs = [], []
+        for i in range(1 + EVAL_CALLS):
+            before = ops.launch_counts()
+            t0 = time.perf_counter()
+            out = episodic_eval(step, corpus, gen, EVAL_EPISODES, EVAL_CHUNK)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            after = ops.launch_counts()
+            for name, want in per_chunk.items():
+                if after[name] - before[name] != want * n_chunks:
+                    raise AssertionError(
+                        f"eval call {i} (emd {with_emd}): {name} launched "
+                        f"{after[name] - before[name]} times, expected "
+                        f"{want} x {n_chunks}")
+            outs.append({k: v.float().cpu() for k, v in out.items()})
+        for out in outs:
+            for k, v in out.items():
+                if v.shape != (EVAL_EPISODES,) or not bool(
+                        torch.isfinite(v).all()):
+                    raise AssertionError(f"eval {k}: {v}")
+        med = statistics.median(call_ms[1:])
+        res["emd" if with_emd else "no_emd"] = {
+            "warm_call_ms": call_ms[0], "call_ms": call_ms[1:],
+            "episodes_per_s": EVAL_EPISODES * 1e3 / med,
+            "means": {k: float(v.mean()) for k, v in outs[-1].items()
+                      if k != "cls"}}
+    res["per_class"] = evaluate(model, corpus, conf, gen)
+    t0 = time.perf_counter()
+    seq = [(c, i, out) for c, i, out in itertools.islice(
+        run_sequential(model, corpus, conf, gen), SEQ_ITEMS)]
+    res["sequential"] = {
+        "items": len(seq), "ms": (time.perf_counter() - t0) * 1e3,
+        "first": seq[0], "cd_mean": statistics.mean(o["cd"] for *_, o in seq),
+        "emd_mean": statistics.mean(o["emd"] for *_, o in seq)}
+    if len(seq) != SEQ_ITEMS or not all(
+            np.isfinite([o["cd"], o["emd"]]).all() for *_, o in seq):
+        raise AssertionError(f"sequential eval: {res['sequential']}")
+    res["counts"] = ops.launch_counts()
+    res["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    moved = [k for k, v in stats0.items()
+             if not torch.equal(model.state_dict()[k], v)]
+    if moved:
+        raise AssertionError(f"evaluation moved running statistics: "
+                             f"{moved[:4]}")
+    steps = {w: make_eval_step(model, S_TR, Q_TR, with_emd=w)
+             for w in (True, False)}
+    return steps, corpus, gen, res
+
+
+def compare_eval_with_cpu() -> dict:
+    """``reconstruct`` of 2 episodes at the reduced size (8 support, 64x64
+    images, 512 points, the full-width decoder, f32), called in training
+    mode, on the card and on the CPU from the same weights (running
+    statistics drawn from a seed), episodes and template points: CD and
+    the clouds within PATH_TOL, EMD within the K6 bound."""
+    conf = FPSGConfig(seed=SEED, n_shot=N_S_RED, n_query=Q_TR,
+                      num_pts=NPTS_RED, intra_recon=True)
+    corpus = synthetic_device_corpus(2, 12, NPTS_RED, IMG_RED, seed=SEED,
+                                     device="cpu")
+    batch = sample_episode_batch(corpus, N_S_RED, Q_TR, 2,
+                                 torch.Generator().manual_seed(SEED))
+    model = init_model(conf, "cpu")
+    g = torch.Generator().manual_seed(SEED + 6)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(0.1 * torch.randn(buf.shape, generator=g))
+            elif name.endswith("running_var"):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=g))
+    tp = model.pc_decoder.template_points(
+        2 * Q_TR, torch.Generator().manual_seed(SEED + 3))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        twin = init_model(conf, "cpu")
+        twin.load_state_dict(model.state_dict())
+        twin = twin.to(dev)
+        with torch.no_grad():
+            r = twin.reconstruct({k: v.to(dev) for k, v in batch.items()},
+                                 template_points=tp.to(dev))
+        out[dev] = {k: v.float().cpu() for k, v in r.items()}
+    card, cpu = out["cuda"], out["cpu"]
+    res = {"cd_rel_diff": ((card["cd_loss"] - cpu["cd_loss"]).abs()
+                           / cpu["cd_loss"].abs()).max().item(),
+           "emd_abs_diff": (card["emd_loss"] - cpu["emd_loss"]).abs()
+           .max().item(),
+           "emd_cpu": cpu["emd_loss"].tolist(),
+           "cd_cpu": cpu["cd_loss"].tolist(),
+           "syn_max_abs_diff": rel_err(card["syn_pc"], cpu["syn_pc"])[0],
+           "syn_scale": cpu["syn_pc"].abs().max().item()}
+    emd_ok = bool(((card["emd_loss"] - cpu["emd_loss"]).abs()
+                   <= SINKHORN_ATOL + SINKHORN_RTOL * cpu["emd_loss"].abs())
+                  .all())
+    if not (res["cd_rel_diff"] <= PATH_TOL and emd_ok
+            and res["syn_max_abs_diff"] <= PATH_TOL * res["syn_scale"]):
+        raise AssertionError(f"reconstruct, card vs CPU, out of bounds: "
+                             f"{res}")
     return res
 
 
@@ -1075,9 +1372,15 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60
+    ).stdout.strip().splitlines()[0])
     kind = torch.cuda.get_device_name(0)
     say("device", nvidia_smi=smi, torch=torch.__version__,
-        cuda=torch.version.cuda, count=torch.cuda.device_count())
+        cuda=torch.version.cuda, count=torch.cuda.device_count(),
+        max_sm_clock_mhz=sm_mhz)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1110,6 +1413,13 @@ def main() -> int:
             for row in per_shape:
                 say(f"kernel {kernel} {name}", **row)
         torch.cuda.empty_cache()
+    sinkhorn_rows, multiscale = check_sinkhorn(gpu_gen, sm_mhz * 1e6)
+    detail["sinkhorn"] = sinkhorn_rows
+    for kernel, per_shape in sinkhorn_rows.items():
+        for row in per_shape:
+            say(f"kernel {kernel} f32", **row)
+    say("multiscale path", **multiscale)
+    torch.cuda.empty_cache()
 
     conf = FPSGConfig(seed=SEED)
     t0 = time.perf_counter()
@@ -1170,13 +1480,51 @@ def main() -> int:
     bench_plain = compare_single_read_with_cpu(cpu_fused="on",
                                                card_fused=None)
     say("bench plain", **bench_plain)
+    torch.cuda.empty_cache()
+
+    eval_steps, corpus, egen, eval_run = drive_eval()
+    say("eval", **eval_run)
+    eval_prof = profile(lambda: eval_steps[True](corpus, egen, EVAL_CHUNK),
+                        "_eval")
+    k6_ms = eval_prof["groups_ms"]["sinkhorn (K6/K11)"]
+    eval_prof["emd_share_of_call"] = k6_ms / eval_prof["wall_ms"]
+    if isinstance(eval_prof["device_ms"], float):
+        eval_prof["emd_share_of_device"] = k6_ms / eval_prof["device_ms"]
+    say("eval profile", **eval_prof)
+    eval_prof_no_emd = profile(
+        lambda: eval_steps[False](corpus, egen, EVAL_CHUNK), "_eval_no_emd")
+    say("eval profile without EMD", **eval_prof_no_emd)
+    del eval_steps, corpus
+    torch.cuda.empty_cache()
+    eval_plain = compare_eval_with_cpu()
+    say("eval plain", **eval_plain)
+    torch.cuda.empty_cache()
+
+    state, corpus, step, tgen, emd_run = drive_training(
+        PER_STEP_EMD, precise_stats=False, compute_dtype="bf16",
+        bf16_moments=True, steps_per_call=BENCH_K, pc_dist="emd")
+    say("train emd", **emd_run)
+    emd_prof = profile(lambda: step(state, corpus, tgen), "_train_emd")
+    say("emd profile", **emd_prof)
+    del state, corpus, step
+    torch.cuda.empty_cache()
+    emd_plain = compare_single_read_with_cpu(cpu_fused="on",
+                                             card_fused=None, pc_dist="emd")
+    say("emd plain", **emd_plain)
 
     # serving kernels at the serving shapes with the serving run's launches;
     # the training paths' kernels at the step's shapes with their runs'
     # launches (the single-read kernels in bf16, the main path's dtype)
     lines = []
     for kernel in SOURCES:
-        if kernel in K5_TRAIN:
+        if kernel == "sinkhorn":                 # per eval chunk of 16
+            rows = [r for r in sinkhorn_rows[kernel]
+                    if r["case"] == "eval B=16"]
+            launches = eval_run["counts"][kernel]
+        elif kernel == "sinkhorn_warm":          # the multiscale path
+            rows = sinkhorn_rows[kernel]
+            launches = multiscale["counts"][kernel]
+        elif kernel in K5_TRAIN:
             rows = detail["train_kernels"]["bf16"][kernel]
             launches = bench_run["counts"][kernel]
         elif kernel in TRAIN_KERNELS:
@@ -1198,7 +1546,11 @@ def main() -> int:
                   train_single_read=sr_run, single_read_profile=sr_prof,
                   single_read_plain=sr_plain, train_bench=bench_run,
                   bench_profile=bench_prof, bench_plain=bench_plain,
-                  kernels_line=lines)
+                  multiscale=multiscale, eval=eval_run,
+                  eval_profile=eval_prof,
+                  eval_profile_no_emd=eval_prof_no_emd, eval_plain=eval_plain,
+                  train_emd=emd_run, emd_profile=emd_prof,
+                  emd_plain=emd_plain, kernels_line=lines)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(detail, indent=1))
     print(json.dumps({"kernels": lines}))
     print(smi)

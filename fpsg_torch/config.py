@@ -1,4 +1,5 @@
-"""The configuration fields the serving path and the training step read.
+"""The configuration fields the serving path, the training step and the
+evaluator read.
 
 A copy of the matching ``FPSGConfig`` fields of ``fpsg_tpu/config.py``
 (same names and defaults); the port keeps its own so that it never
@@ -44,6 +45,13 @@ class FPSGConfig:
     bf16_moments: bool = False   # Adam moments stored bf16
     dp: int = 1                  # data-parallel mesh size
     mp: int = 1                  # model-parallel mesh size
+
+    # evaluation
+    sequential_eval: bool = False  # every test item once as the query
+    eval_episodes: int = 100     # random-sampler eval episodes
+    eval_chunk: int = 16         # episodes per eval call (the largest
+                                 # divisor of eval_episodes <= this)
+    seq_eval_chunk: int = 8      # sequential eval: test items per call
 
     @property
     def effective_n_query(self) -> int:

@@ -10,7 +10,8 @@ Training (``model.train()``):
   reference's; the prototype is the mean of the support features; the
   decoder runs on [img_q ‖ proto] and, with ``intra_support``, on
   [img_ad ‖ pc_ad]; each reconstruction is the Chamfer distance summed
-  over its batch (``metric="cd"``).
+  over its batch (``metric="cd"``), or the Sinkhorn EMD at the training
+  loss's settings (``metric="emd"``, ``--pc_dist emd``).
 - ``decoder_fused`` (``"auto"``, ``"on"``, ``"off"``) picks the decoder's
   node chain in training (``protonet.py:115``; see
   :class:`~fpsg_torch.nn.decoder.PrimitiveDecoder`): ``"auto"`` fuses it
@@ -30,10 +31,12 @@ Eval (``model.eval()``):
   on ``[img_z ‖ proto]`` with a shared ``(F,)`` or per-item ``(B, F)``
   prototype (``protonet.py:324-370``).
 - :meth:`ImgPCProtoNet.generate`: both, from a sample dict.
+- :meth:`ImgPCProtoNet.reconstruct`: the evaluator's CD and EMD of the
+  query reconstructions, in eval mode whatever the module's mode, for
+  one episode or a batch of episodes.
 
 Only ``aggregate="single"`` is ported (``mask_single`` waits), with the
-``vgg_16`` image backbone and the ``pointnet`` cloud backbone; the EMD
-metric and ``reconstruct`` wait for the evaluation slice.
+``vgg_16`` image backbone and the ``pointnet`` cloud backbone.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from fpsg_torch.nn.pointnet import PointNetEncoder
 from fpsg_torch.nn.templates import get_template
 from fpsg_torch.nn.vgg import ImageEncoder
 from fpsg_torch.ops.chamfer import chamfer_distance
+from fpsg_torch.ops.emd import sinkhorn_emd
 
 IMG_FEATURES = 512    # VGG16 embedding width
 PC_FEATURES = 1024    # PointNet prototype width
@@ -90,8 +94,9 @@ class ImgPCProtoNet(nn.Module):
         if pc_backbone != "pointnet":
             raise NotImplementedError(
                 f"point-cloud backbone {pc_backbone!r} is not ported")
-        if metric != "cd":
+        if metric not in ("cd", "emd"):
             raise NotImplementedError(f"metric {metric!r} is not ported")
+        self.metric = metric
         self.query_factor, self.support_factor = query_factor, support_factor
         self.intra_support = intra_support
         self.dtype = dtype
@@ -118,19 +123,28 @@ class ImgPCProtoNet(nn.Module):
     # -- training ----------------------------------------------------------
 
     def _encode(self, sample: Dict[str, torch.Tensor]):
-        """``(img_zad, img_zq, pc_z_ad, proto_mat_q)`` of an episode."""
+        """``(img_zad, img_zq, pc_z_ad, proto_mat_q)`` of a batch of E
+        episodes, each (E, S or Q, F): images as [ad ‖ query] and clouds
+        as [support ‖ ad], each episode after the other in one batch."""
         xq, xad = sample["xq"], sample["xad"]
-        n_support, n_query = xad.shape[0], xq.shape[0]
-        img_z = self.img_encoder(torch.cat([xad, xq], dim=0))
+        e, n_support, n_query = xq.shape[0], xad.shape[1], xq.shape[1]
+        img_z = self.img_encoder(torch.cat([xad, xq], dim=1).flatten(0, 1))
+        img_z = img_z.unflatten(0, (e, n_support + n_query))
         pc_z = self.pc_encoder(torch.cat([sample["pcs"], sample["pcad"]],
-                                         dim=0))
-        proto = pc_z[:n_support].mean(dim=0, keepdim=True)
-        return (img_z[:n_support], img_z[n_support:], pc_z[n_support:],
-                proto.expand(n_query, proto.shape[-1]))
+                                         dim=1).flatten(0, 1))
+        pc_z = pc_z.unflatten(0, (e, 2 * n_support))
+        proto = pc_z[:, :n_support].mean(dim=1, keepdim=True)
+        return (img_z[:, :n_support], img_z[:, n_support:],
+                pc_z[:, n_support:], proto.expand(e, n_query, proto.shape[-1]))
 
-    @staticmethod
-    def _pc_metric(syn: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-        return chamfer_distance(syn, ref).sum()
+    def _pc_dist(self, syn: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+        """The reconstruction metric per cloud (B,). The EMD takes the
+        training loss's cheap entropic settings (``protonet.py:242-247``):
+        gradients need only the plan's direction; :meth:`reconstruct`
+        scores with the accurate defaults."""
+        if self.metric == "cd":
+            return chamfer_distance(syn, ref)
+        return sinkhorn_emd(syn, ref, eps=0.01, n_iters=100)
 
     def loss(self, sample: Dict[str, torch.Tensor],
              template_points: Optional[Dict[str, torch.Tensor]] = None,
@@ -141,24 +155,44 @@ class ImgPCProtoNet(nn.Module):
 
         ``sample``: ``xq`` (Q, H, W, 3) and ``xad`` (S, H, W, 3) images in
         [-1, 1]; ``pcs``, ``pcad`` (S, N, 3) and ``pcq`` (Q, N, 3) clouds.
+        Each reconstruction is ``metric`` summed over its clouds.
         ``template_points`` optionally pins the decoder's template draws
         (``"query"`` / ``"support"``: (B, C, Nn, P, ori)); otherwise each
-        decoder pass draws from ``generator``."""
+        decoder pass draws from ``generator``.
+
+        In eval mode the fields may carry a leading episode axis E (as
+        :func:`~fpsg_torch.data.corpus.sample_episode_batch` gives them):
+        the losses are then (E,), and the template points are for the
+        E x Q (E x S) clouds, episode-major. Training takes one episode:
+        its batch statistics are the episode's own."""
+        batched = sample["xq"].dim() == 5
+        if batched and self.training:
+            raise ValueError("a batch of episodes needs eval mode: training "
+                             "statistics are per episode")
+        if not batched:
+            sample = {k: sample[k][None]
+                      for k in ("xq", "xad", "pcs", "pcad", "pcq")}
         tp = template_points or {}
+        e = sample["xq"].shape[0]
         img_zad, img_zq, pc_z_ad, proto_mat_q = self._encode(sample)
-        syn_q = self.pc_decoder(torch.cat([img_zq, proto_mat_q], dim=1),
-                                tp.get("query"), generator)
-        loss_q = self._pc_metric(syn_q, sample["pcq"])
+        syn_q = self.pc_decoder(
+            torch.cat([img_zq, proto_mat_q], dim=-1).flatten(0, 1),
+            tp.get("query"), generator)
+        loss_q = self._pc_dist(syn_q, sample["pcq"].flatten(0, 1)) \
+            .reshape(e, -1).sum(dim=1)
         if self.intra_support:
             # conditioned on per-item ad features, not the prototype
-            syn_s = self.pc_decoder(torch.cat([img_zad, pc_z_ad], dim=1),
-                                    tp.get("support"), generator)
-            loss_s = self._pc_metric(syn_s, sample["pcad"])
+            syn_s = self.pc_decoder(
+                torch.cat([img_zad, pc_z_ad], dim=-1).flatten(0, 1),
+                tp.get("support"), generator)
+            loss_s = self._pc_dist(syn_s, sample["pcad"].flatten(0, 1)) \
+                .reshape(e, -1).sum(dim=1)
         else:
-            loss_s = torch.zeros((), device=loss_q.device)
+            loss_s = torch.zeros((e,), device=loss_q.device)
         recon = self.query_factor * loss_q + self.support_factor * loss_s
-        return {"ttl_loss": recon, "recon_loss": recon,
-                "query_rec_loss": loss_q, "support_rec_loss": loss_s}
+        out = {"ttl_loss": recon, "recon_loss": recon,
+               "query_rec_loss": loss_q, "support_rec_loss": loss_s}
+        return out if batched else {k: v[0] for k, v in out.items()}
 
     def forward(self, sample: Dict[str, torch.Tensor],
                 template_points: Optional[Dict[str, torch.Tensor]] = None,
@@ -203,6 +237,50 @@ class ImgPCProtoNet(nn.Module):
         proto = self.encode_prototype(sample["pcs"])
         return self.generate_from_proto(sample["xq"], proto, template_points,
                                         generator)
+
+
+    def reconstruct(self, sample: Dict[str, torch.Tensor],
+                    template_points: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """The evaluator's scores of the query reconstructions
+        (``protonet.py:298-314``; the reference's
+        ``_return_reconstruction``): ``cd_loss = query_factor * sum_q
+        CD``, ``emd_loss = sum_q EMD`` at the accurate defaults of
+        :func:`~fpsg_torch.ops.emd.sinkhorn_emd`, and ``syn_pc`` (Q,
+        num_points, 3), from the prototype of the support clouds ``pcs``
+        and the query images ``xq``.
+
+        BatchNorm always runs on its running statistics, as JAX's
+        ``train=False`` does, whatever mode the module is in (it is
+        restored after), and no running statistic moves. Fields may carry
+        a leading episode axis E, as in :meth:`loss`: the scores are then
+        (E,) and ``syn_pc`` (E, Q, num_points, 3). ``template_points`` (E
+        x Q, C, Nn, P, ori) pins the decoder's draws; otherwise they come
+        from ``generator``. Only the fields this reads are encoded (JAX
+        drops the ad branch as dead code)."""
+        batched = sample["xq"].dim() == 5
+        xq, pcs, pcq = (sample[k] if batched else sample[k][None]
+                        for k in ("xq", "pcs", "pcq"))
+        e, n_query, n_support = xq.shape[0], xq.shape[1], pcs.shape[1]
+        was_training = self.training
+        self.eval()
+        try:
+            img_zq = self.img_encoder(xq.flatten(0, 1))
+            proto = self.pc_encoder(pcs.flatten(0, 1)).unflatten(
+                0, (e, n_support)).mean(dim=1)
+            proto_q = proto[:, None].expand(e, n_query, proto.shape[-1])
+            syn = self.pc_decoder(
+                torch.cat([img_zq, proto_q.flatten(0, 1)], dim=1),
+                template_points, generator)
+        finally:
+            self.train(was_training)
+        ref = pcq.flatten(0, 1)
+        cd = chamfer_distance(syn, ref).reshape(e, n_query).sum(dim=1)
+        emd = sinkhorn_emd(syn, ref).reshape(e, n_query).sum(dim=1)
+        out = {"cd_loss": self.query_factor * cd, "emd_loss": emd,
+               "syn_pc": syn.unflatten(0, (e, n_query))}
+        return out if batched else {k: v[0] for k, v in out.items()}
 
 
 def build_model(conf: FPSGConfig,

@@ -75,8 +75,9 @@ def bn_maxpool(y: torch.Tensor, b: torch.Tensor, bn: BatchNorm, relu: bool,
         k, beff = bn.affine_from_stats(mz + s, var, n, shift=b)
     else:
         k, beff = bn.affine(shift=b, x=y)              # (F,) f32
-        ymax = torch.amax(y.float(), dim=1)            # (B, F)
-        ymin = torch.amin(y.float(), dim=1)
+        yf = y.float()                                 # one f32 copy
+        ymax = torch.amax(yf, dim=1)                   # (B, F)
+        ymin = torch.amin(yf, dim=1)
     od = out_dtype or y.dtype
     cd = od if od == torch.bfloat16 else k.dtype
     sel = torch.where(k > 0, ymax, ymin).to(cd)

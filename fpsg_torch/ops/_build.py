@@ -32,7 +32,7 @@ from typing import Dict, Iterable, Sequence
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fpsg_torch"
 SOURCES = ("maxpool2x2", "fused_stack", "chamfer", "segment_sum", "moments",
-           "pool_moments")
+           "pool_moments", "sinkhorn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

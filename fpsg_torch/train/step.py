@@ -15,7 +15,8 @@ stacks the metrics on a leading K axis; 0 (auto) and 1 run one step and
 return scalars. Nothing in it waits for the device: the metrics come back
 as device tensors.
 
-Supported configuration: one episode per step, the Chamfer metric,
+Supported configuration: one episode per step, the Chamfer metric or
+the Sinkhorn EMD (``conf.pc_dist="emd"``, through ``build_model``),
 BatchNorm statistics single-read (the default; kernels K3 and K4 at the
 PointNet and VGG pool sites) or two-pass (``precise_stats=True``), compute
 in ``compute_dtype`` "f32" or "bf16" (parameters, BatchNorm statistics,

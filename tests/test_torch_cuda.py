@@ -18,7 +18,12 @@ indices, codes and the backward bitwise; the shifted sums within 1e-6 of
 their scale (another summation order). The decoder's training kernels
 (K5a/K5d with statistics, K5b, K5c, K5e, K5g) within 1e-5 (f32) or 2e-2
 (bf16) of each output's scale, and a small fused training decoder's
-gradients on the card within 1e-4 of each leaf's scale of the CPU's.
+gradients on the card within 1e-4 of each leaf's scale of the CPU's. The
+Sinkhorn solves (K6, K11): potentials within 1e-5 of their scale at a
+fixed iteration count, values within rtol 1e-3 / atol 1e-5 (the JAX
+package's own pallas-vs-oracle bound), iteration counts within 2 (exp2f
+and the order of the sums against the plain version's exp and sums can
+move a delta across tol by an iteration).
 """
 
 import copy
@@ -27,6 +32,8 @@ import pytest
 import torch
 
 from fpsg_torch.nn import fused_stack as tfs
+from fpsg_torch.ops import emd
+from fpsg_torch.ops import launch_counts
 from fpsg_torch.ops import moments as mo
 from fpsg_torch.ops import pool_moments as pm
 from fpsg_torch.ops.chamfer import chamfer_distance, nn_both, nn_both_plain
@@ -239,3 +246,55 @@ def test_fused_training_kernels_match_plain_on_card(dt):
                           twin.named_parameters() if q.grad is not None})
         for nm, g in grads[0].items():
             assert (grads[1][nm] - g).abs().max() <= 1e-4 * g.abs().max(), nm
+
+
+@pytest.mark.cuda
+def test_sinkhorn_kernels_match_plain_on_card():
+    """K6 and K11 against the plain version on the card at small ragged
+    shapes (N != M, a partial 1024-column tile, a partial 32-row block),
+    with a batch that mixes an easy pair with hard ones so that clouds
+    exit at different iterations; ``sinkhorn_emd`` and its gradient on the
+    card against the CPU; one launch counted per solve."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    gen = torch.Generator().manual_seed(4)
+
+    def cloud(*shape):
+        p = torch.randn(shape, generator=gen)
+        return p / p.norm(dim=-1).amax(dim=-1)[..., None, None]
+
+    x, y = cloud(3, 300, 3), cloud(3, 1100, 3)
+    fixed = dict(eps=1e-2, n_iters=80, anneal_frac=0.5, eps0=0.1, tol=0.0,
+                 omega=1.6)
+    g0 = 0.01 * torch.randn((3, 1100), generator=gen)
+    for extra in ({}, {"g0": g0.cuda(), "eps0": 0.05, "anneal_frac": 0.4}):
+        kw = {**fixed, **extra}
+        before = launch_counts()
+        got = emd.sinkhorn_potentials(x.cuda(), y.cuda(), **kw)
+        ref = emd.sinkhorn_potentials_plain(x.cuda(), y.cuda(), **kw)
+        name = emd.KERNEL_WARM if extra else emd.KERNEL
+        assert launch_counts()[name] - before[name] == 1
+        for a, r in zip(got[:2], ref[:2]):
+            assert (a - r).abs().max() <= 1e-5 * r.abs().max()
+        assert got[2].tolist() == [80, 80, 80]
+
+    x, y = cloud(4, 300, 3), cloud(4, 300, 3)
+    y[1] = x[1] + 0.01 * torch.randn((300, 3), generator=gen)
+    kw = dict(eps=2e-4, n_iters=360, anneal_frac=0.5, eps0=0.1,
+              tol=emd.DEFAULT_TOL, omega=emd.DEFAULT_OMEGA)
+    got = emd.sinkhorn_potentials(x.cuda(), y.cuda(), **kw)
+    ref = emd.sinkhorn_potentials_plain(x.cuda(), y.cuda(), **kw)
+    assert (got[2] - ref[2]).abs().max() <= 2, (got[2], ref[2])
+    assert got[2][1] == got[2].min() and got[2][1] < got[2].max(), got[2]
+    c = emd.pairwise_sqdist(x.cuda(), y.cuda())
+    torch.testing.assert_close(emd.transport_cost(c, got[0], got[1], 2e-4),
+                               emd.transport_cost(c, ref[0], ref[1], 2e-4),
+                               rtol=1e-3, atol=1e-5)
+
+    xc, xg = x.clone().requires_grad_(), x.cuda().requires_grad_()
+    vc = emd.sinkhorn_emd(xc, y, eps=0.01, n_iters=100, reduce="sum")
+    vg = emd.sinkhorn_emd(xg, y.cuda(), eps=0.01, n_iters=100, reduce="sum")
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-3, atol=1e-5)
+    vc.backward()
+    vg.backward()
+    assert (xg.grad.cpu() - xc.grad).abs().max() <= 1e-4 * xc.grad.abs().max()

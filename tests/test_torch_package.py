@@ -45,7 +45,8 @@ def test_importing_the_port_loads_no_jax():
         "import sys, fpsg_torch, fpsg_torch.serve, fpsg_torch.nn, "
         "fpsg_torch.models, fpsg_torch.io.bridge, fpsg_torch.train, "
         "fpsg_torch.data.synthetic, fpsg_torch.ops.chamfer, "
-        "fpsg_torch.ops.moments, fpsg_torch.ops.pool_moments\n"
+        "fpsg_torch.ops.moments, fpsg_torch.ops.pool_moments, "
+        "fpsg_torch.ops.emd, fpsg_torch.train.eval\n"
         "assert 'fpsg_torch.ops._build' not in sys.modules, 'kernel build'\n"
         "import chip_smoke\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
